@@ -1,0 +1,14 @@
+"""PyTorch + CUDA port of the i3dr_stereo_tpu stereo depth engine.
+
+The JAX package ``i3dr_stereo_tpu`` is the reference; this package mirrors
+its subpackage and module names so each module's counterpart is easy to
+find, and never imports JAX or the JAX package. Every TPU kernel on the
+ported path is a hand-written CUDA kernel for Hopper (``csrc/``, built at
+first use by :mod:`i3dr_stereo_tpu_torch._build`) with a plain torch twin
+beside it. A tensor's device decides which runs: a CPU tensor takes the
+twin, a CUDA tensor launches the kernel or raises.
+
+Ported so far: the flagship pyramid census-SGM path
+(``pipeline.stereo_pipeline.StereoPipeline`` with ``Algorithm.I3DRSGM``)
+on rectified inputs, without the speckle filter (ROADMAP.md).
+"""

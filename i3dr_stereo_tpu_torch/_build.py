@@ -1,0 +1,139 @@
+"""Build, load and launch the port's hand-written CUDA kernels.
+
+The sources in ``csrc/*.cu`` are compiled at first use with ``nvcc`` for
+Hopper (``sm_90a``) into one shared library with a plain C interface,
+loaded with ``ctypes`` — no PyTorch headers, so a cold build takes
+seconds, not minutes. The library lands in ``_kernels/<hash>/`` beside
+this file (listed in ``.gitignore``), keyed by a hash of the sources and
+flags, so an edited kernel is rebuilt and an unchanged one is reused.
+
+Every C entry point launches one kernel on the stream it is given and
+returns ``cudaGetLastError()``; :func:`launch` raises on a non-zero code
+and otherwise adds one to that kernel's count in :data:`LAUNCHES`, so a
+run can show that its main path went through the kernels.
+
+Nothing here runs at import: this module is imported on machines with no
+CUDA toolkit, where only the plain torch twins of the kernels run.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_kernels"
+LIB_NAME = "libi3dr_torch_kernels.so"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+# kernel name -> launches since the last reset_launches()
+LAUNCHES = {"census_cost": 0, "sgm_path": 0, "sum_wta": 0, "row_gather": 0}
+
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+# C entry -> argtypes (pointers and the stream as c_void_p: a bare Python
+# int would be passed as a 32-bit int and cut)
+_SIGNATURES = {
+    # cl, cr, C, B, H, W, NW, D, bpm, H_real, W_real, stream
+    "i3dr_census_cost": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # C, out, B, H, W, dy, dx, p1, p2, stream
+    "i3dr_sgm_path": (_P, _P, _I, _I, _I, _I, _I, _F, _F, _P),
+    # C, parts (host array of device pointers), n_down, n_up, disp,
+    # n_pix, subpixel, uniqueness_ratio, stream
+    "i3dr_sum_wta": (_P, _P, _I, _I, _P, _L, _I, _F, _P),
+    # src, idx, q, out, B, H, W, Hq, Wq, radius, stream
+    "i3dr_row_gather": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+}
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def _nvcc() -> str:
+    nvcc = shutil.which("nvcc")
+    if nvcc is None and Path("/usr/local/cuda/bin/nvcc").exists():
+        nvcc = "/usr/local/cuda/bin/nvcc"
+    if nvcc is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                           "toolkit (PATH or /usr/local/cuda/bin)")
+    return nvcc
+
+
+def _library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in _sources():
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return BUILD_DIR / h.hexdigest()[:16] / LIB_NAME
+
+
+def build() -> Path:
+    """Compile the kernels unless this exact source set is built already.
+    nvcc's report (registers, shared memory, spills) is kept beside the
+    library as ``build.log``."""
+    out = _library_path()
+    if out.exists():
+        return out
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{LIB_NAME}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+           *(str(f) for f in _sources() if f.suffix == ".cu")]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    (out.parent / "build.log").write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n"
+                           f"{proc.stderr[-4000:]}")
+    os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    return out
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    lib.i3dr_error_string.argtypes = [ctypes.c_int]
+    lib.i3dr_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def require_cuda(*tensors: torch.Tensor) -> None:
+    """Raise unless every tensor is a contiguous tensor on one CUDA device."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device.type != "cuda" or t.device != dev:
+            raise ValueError(f"expected tensors on one CUDA device, got "
+                             f"{[str(x.device) for x in tensors]}")
+        if not t.is_contiguous():
+            raise ValueError("the CUDA kernels take contiguous tensors")
+
+
+def stream_of(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def launch(entry: str, kernel: str, device: torch.device, *args) -> None:
+    """Call C entry ``entry`` on ``device``; raise on a CUDA error, else
+    count one launch of ``kernel``."""
+    lib = library()
+    with torch.cuda.device(device):
+        err = getattr(lib, entry)(*args)
+    if err != 0:
+        raise RuntimeError(f"{entry}: CUDA error {err} "
+                           f"({lib.i3dr_error_string(err).decode()})")
+    LAUNCHES[kernel] += 1
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0

@@ -1,0 +1,48 @@
+"""Carry configuration and calibration across from the JAX package.
+
+The port keeps its own copies of the framework-free config and camera
+classes (importing any ``i3dr_stereo_tpu`` module imports JAX). These
+helpers turn the reference package's objects into the port's by reading
+plain attributes and numpy arrays — duck-typed, so this module imports
+nothing of the JAX package — letting both sides compute from identical
+state.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+from i3dr_stereo_tpu_torch.config.params import (
+    Algorithm,
+    CostFunction,
+    MatcherConfig,
+)
+from i3dr_stereo_tpu_torch.core.camera import CameraModel, StereoRig
+
+
+def config_from_reference(cfg) -> MatcherConfig:
+    """The port's MatcherConfig with every field of the reference ``cfg``."""
+    kw = {}
+    for f in dataclasses.fields(MatcherConfig):
+        v = getattr(cfg, f.name)
+        if f.name == "algorithm":
+            v = Algorithm(int(v))
+        elif f.name == "cost":
+            v = CostFunction(v.value)
+        kw[f.name] = v
+    return MatcherConfig(**kw)
+
+
+def _camera_from_reference(cam) -> CameraModel:
+    return CameraModel(
+        width=int(cam.width), height=int(cam.height),
+        K=np.array(cam.K, dtype=np.float64), D=np.array(cam.D, dtype=np.float64),
+        R=np.array(cam.R, dtype=np.float64), P=np.array(cam.P, dtype=np.float64))
+
+
+def rig_from_reference(rig) -> StereoRig:
+    """The port's StereoRig with the reference rig's calibration."""
+    return StereoRig(_camera_from_reference(rig.left),
+                     _camera_from_reference(rig.right))

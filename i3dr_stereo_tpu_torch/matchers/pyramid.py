@@ -1,0 +1,296 @@
+"""Coarse-to-fine pyramid census SGM (torch port of the flagship branch of
+``i3dr_stereo_tpu.matchers.pyramid`` — the ``pallas_t`` branch the TPU
+runs: block-anchor warp, residual-window census SGM, true backmatching).
+
+Each level matches over a narrow residual window (31 disparities, the
+engine's "Number Of Disparities = 31", ini/quick.param:128) around the
+median-smoothed, upsampled prediction of the coarser level; the coarsest
+level searches from the configured minimum disparity. Per level:
+
+1. edge-pad both images to multiples of 128 (the reference computes on
+   that padding; keeping it keeps the census of the warped image at the
+   bottom and right edges identical);
+2. warp the right image by the prediction, clamped to +-16 of its
+   (8x128)-block anchor (``block_shift_gather``, the ``row_gather``
+   kernel);
+3. census both, then ``census_sgm_wta`` (kernels ``census_cost``,
+   ``sgm_path``, ``sum_wta``);
+4. true backmatching against the right-anchored WTA of the same cost
+   volume, looked up with ``block_shift_gather``;
+5. masked 3x3 median; between levels, invalid pixels take the local
+   median.
+
+Not ported yet, and raising ``NotImplementedError`` rather than skipping:
+the speckle filter (kernel F, ROADMAP.md Queue 2), half-pel subpix
+passes, occlusion handling and hole filling (Queue 1 item 10).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from i3dr_stereo_tpu_torch.config.params import MatcherConfig
+from i3dr_stereo_tpu_torch.config.profile import PyramidLevelConfig, SGMProfile
+from i3dr_stereo_tpu_torch.matchers.base import MatchResult
+from i3dr_stereo_tpu_torch.ops.block_gather import (
+    block_anchors,
+    block_shift_gather,
+    block_shift_gather_plain,
+    pad_edge,
+)
+from i3dr_stereo_tpu_torch.ops.census import census_transform
+from i3dr_stereo_tpu_torch.ops.median import median3x3, median3x3_masked
+from i3dr_stereo_tpu_torch.ops.sgm import DIRECTIONS_4, DIRECTIONS_8
+from i3dr_stereo_tpu_torch.ops.sgm_fused_t import (
+    census_sgm_wta,
+    right_disparity_from_C,
+)
+
+
+def _downsample2(img: torch.Tensor) -> torch.Tensor:
+    """2x2 area downsample of (B, H, W): lane-pair sums, then row-pair
+    sums, then x0.25 — the reference's summation order."""
+    B, H, W = img.shape
+    H2, W2 = H // 2 * 2, W // 2 * 2
+    x = img[:, :H2, :W2]
+    x = x.reshape(B, H2, W2 // 2, 2).sum(-1)
+    x = x.reshape(B, H2 // 2, 2, W2 // 2).sum(2)
+    return x * 0.25
+
+
+def _nearest_index(n_out: int, n_in: int, device) -> torch.Tensor:
+    """Source index of ``jax.image.resize(..., "nearest")``: half-pixel
+    centres, floor((i + 0.5) * n_in / n_out) evaluated in float32 exactly
+    as the reference does (the same index as torch's "nearest-exact")."""
+    pos = (torch.arange(n_out, dtype=torch.float32, device=device) + 0.5)
+    return torch.floor(pos * n_in / n_out).long()
+
+
+def _resize_nearest(x: torch.Tensor, H: int, W: int) -> torch.Tensor:
+    ys = _nearest_index(H, x.shape[-2], x.device)
+    xs = _nearest_index(W, x.shape[-1], x.device)
+    return x[..., ys[:, None], xs[None, :]]
+
+
+def _upsample2_disp(d: torch.Tensor, H: int, W: int) -> torch.Tensor:
+    """Upsample a disparity map to (H, W) and double its values."""
+    return 2.0 * _resize_nearest(d, H, W)
+
+
+def profile_from_config(cfg: MatcherConfig) -> SGMProfile:
+    """The quick-profile schedule with the flat config's census, penalty
+    and filter values on every level (speckle on the finest level only)."""
+    n = max(1, int(cfg.max_pyramid_level))
+    levels = []
+    for lv in range(n - 1, -1, -1):
+        levels.append(PyramidLevelConfig(
+            level=lv,
+            enabled=True,
+            subpix_pass=False,
+            num_disparities=31,
+            census_w=cfg.census_width,
+            census_h=cfg.census_height,
+            p1=(cfg.p1,) * 4,
+            p2=(cfg.p2,) * 4,
+            backmatch=cfg.backmatch_distance >= 0,
+            backmatch_dist=(cfg.backmatch_distance
+                            if cfg.backmatch_distance >= 0 else 0.0),
+            median=cfg.median_filter,
+            speckle=cfg.speckle_size > 0 and lv == 0,
+            speckle_max_diff=cfg.speckle_range,
+            speckle_max_region=cfg.speckle_size,
+            subpixel=cfg.subpixel,
+            interpolate_gaps=cfg.interp or cfg.interpolate_missing,
+            interpolate_occlusions=cfg.occlusion_interp,
+            occlusion_detection=cfg.occlusion_detection,
+            prediction_shift=0.0,
+            uniqueness_ratio=cfg.uniqueness_ratio,
+            interpolator_mode="wls" if cfg.interp else "gauss",
+        ))
+    return SGMProfile(name="from_config", levels=tuple(levels))
+
+
+def _reject_unported(passes) -> None:
+    for p in passes:
+        if p.subpix_pass:
+            raise NotImplementedError(
+                "half-pel subpix passes are not ported yet "
+                "(ROADMAP.md Queue 1 item 10)")
+        if p.speckle and p.speckle_max_region > 0:
+            raise NotImplementedError(
+                "the speckle filter (kernel F) is not ported yet "
+                "(ROADMAP.md Queue 2 F); set speckle_size=0")
+        if p.occlusion_detection:
+            raise NotImplementedError(
+                "occlusion detection is not ported yet "
+                "(ROADMAP.md Queue 1 item 10)")
+        if p.level == 0 and p.interpolate_gaps:
+            raise NotImplementedError(
+                "hole filling (interp / interpolate_missing) is not ported "
+                "yet (ROADMAP.md Queue 1 item 10)")
+
+
+def pyramid_sgm_match(left, right, cfg: MatcherConfig,
+                      profile: Optional[SGMProfile] = None, *,
+                      plain: bool = False) -> MatchResult:
+    """Full coarse-to-fine match of (H, W) or (B, H, W) images.
+
+    ``plain=True`` runs the kernels' plain torch twins on whatever device
+    the images are on (the reference run on the card); by default a CPU
+    tensor takes the twins and a CUDA tensor the kernels."""
+    if profile is None:
+        profile = profile_from_config(cfg)
+    left, right = torch.as_tensor(left), torch.as_tensor(right)
+    batched = left.ndim == 3
+    l = (left if batched else left[None]).to(torch.float32)
+    r = (right if batched else right[None]).to(torch.float32)
+    B, H, W = l.shape
+
+    passes = profile.enabled_levels
+    if not passes:
+        raise ValueError("profile has no enabled pyramid levels")
+    _reject_unported(passes)
+    # clamp levels to what the image size supports (coarsest >= ~32 px)
+    max_by_size = max(0, min(H, W).bit_length() - 6)
+    passes = [dataclasses.replace(p, level=min(p.level, max_by_size))
+              for p in passes]
+    deepest = max(p.level for p in passes)
+
+    pyr_l, pyr_r = [l], [r]
+    for _ in range(deepest):
+        pyr_l.append(_downsample2(pyr_l[-1]))
+        pyr_r.append(_downsample2(pyr_r[-1]))
+
+    n_dirs = 4 if cfg.num_directions == 4 else 8
+    disp = valid = cur_level = None
+    for p in passes:
+        ll, rr = pyr_l[p.level], pyr_r[p.level]
+        Bh, Hh, Wh = ll.shape
+        K = max(8, p.num_disparities + 1)  # odd profile count -> even window
+        pens = tuple((p.p1[min(i, 3)], p.p2[min(i, 3)])
+                     for i in range(n_dirs))
+        if disp is None:
+            base_val = int(round(cfg.min_disparity / (2 ** p.level)
+                                 + p.prediction_shift))
+            pred_int = None
+        else:
+            pred = disp
+            while cur_level > p.level:
+                pred = _upsample2_disp(pred, pyr_l[cur_level - 1].shape[1],
+                                       pyr_l[cur_level - 1].shape[2])
+                cur_level -= 1
+            pred = median3x3(pred)
+            pred_int = torch.round(pred).to(torch.int32).clamp(0, Wh - 1)
+            base_val = 0
+        disp, valid, bm = _match_level_fused_t(
+            ll, rr, pred_int, base_val, K, pens, n_dirs,
+            (p.census_h, p.census_w),
+            subpixel=(p.level == 0 and p.subpixel),
+            uniqueness_ratio=p.uniqueness_ratio,
+            want_backmatch=p.backmatch, plain=plain)
+        cur_level = p.level
+        # matched right column must land inside the image
+        xs = torch.arange(Wh, dtype=torch.int32, device=disp.device)
+        rcol = xs - torch.round(disp).to(torch.int32)
+        valid = valid & (rcol >= 0) & (rcol < Wh)
+        if p.backmatch:
+            valid = _backmatch_check_true(valid, bm, p.backmatch_dist, K,
+                                          plain=plain)
+        if p.median:
+            disp = median3x3_masked(disp, valid)
+        if p.level != 0:
+            disp = torch.where(valid, disp, median3x3(disp))
+
+    # bring the estimate to full resolution if the finest enabled level
+    # was coarser than 0
+    while cur_level > 0:
+        Hn, Wn = pyr_l[cur_level - 1].shape[1:]
+        disp = _upsample2_disp(disp, Hn, Wn)
+        valid = _resize_nearest(valid, Hn, Wn)
+        cur_level -= 1
+
+    if not batched:
+        disp, valid = disp[0], valid[0]
+    return MatchResult(disparity=disp, valid=valid)
+
+
+def _ceil_to(v: int, m: int) -> int:
+    return (v + m - 1) // m * m
+
+
+def _match_level_fused_t(ll, rr, pred_int, base_val: int, K: int, pens,
+                         num_directions: int, census_hw, *, subpixel: bool,
+                         uniqueness_ratio=0.0, want_backmatch: bool = False,
+                         plain: bool = False):
+    """One pyramid level: block-anchor warp, census, cost + SGM + WTA.
+    Returns (absolute disparity, valid, backmatch_info) where
+    backmatch_info = (residual disparity, its validity, d_right,
+    valid_right, bpm) on the padded grid, or None."""
+    gather = block_shift_gather_plain if plain else block_shift_gather
+    B, Hh, Wh = ll.shape
+    K8 = _ceil_to(max(K, 8), 8)
+    Hp, Wp = _ceil_to(Hh, 128), _ceil_to(Wh, 128)
+    llp = pad_edge(ll, Hp, Wp).contiguous()
+    rrp = pad_edge(rr, Hp, Wp).contiguous()
+
+    if pred_int is None:
+        rw = rrp
+        bpm = int(base_val)
+        offset = float(base_val)
+    else:
+        pred_p = pad_edge(pred_int, Hp, Wp)
+        q = block_anchors(pred_p)
+        q_up = q.repeat_interleave(8, 1).repeat_interleave(128, 2)
+        pred_eff = torch.minimum(torch.maximum(pred_p, q_up - K8 // 2),
+                                 q_up + K8 // 2).contiguous()
+        rw = gather(rrp, pred_eff, q, K8 // 2)
+        bpm = -(K8 // 2)
+        offset = (pred_eff[:, :Hh, :Wh] + bpm).to(torch.float32)
+
+    ch, cw = census_hw
+    cl = census_transform(llp, ch, cw)
+    cr = census_transform(rw, ch, cw)
+    disp_p, C = census_sgm_wta(cl, cr, K8, bpm=bpm, W_real=Wh, H_real=Hh,
+                               pens=pens, directions=num_directions,
+                               subpixel=subpixel,
+                               uniqueness_ratio=uniqueness_ratio, plain=plain)
+    disp_res = disp_p[:, :Hh, :Wh]
+    valid = disp_res > -1.0e8
+    disp = torch.where(valid, disp_res, float(K8 // 2)) + offset
+    bm = None
+    if want_backmatch:
+        valid_p = disp_p > -1.0e8
+        r_res = torch.where(valid_p, disp_p + float(bpm), 0.0)
+        d_r, v_r = right_disparity_from_C(C, bpm, Wh)
+        bm = (r_res, valid_p, d_r, v_r, bpm)
+    return disp, valid, bm
+
+
+def _backmatch_check_true(valid, bm, max_diff, K: int, *,
+                          plain: bool = False):
+    """LR check against the right-anchored match of the level's own cost
+    volume ("Compute Backmatching" + "Maximum Backmatching Distance",
+    ini/quick.param:121-122), in warped (residual) space: left pixel x
+    matched right pixel x - r(x) is consistent iff
+    |r(x) - d_R(x - round(r(x)))| <= max_diff. The gather anchor is the
+    constant window midpoint, so radius K8//2 + 1 covers every residual."""
+    gather = block_shift_gather_plain if plain else block_shift_gather
+    r_res, valid_p, d_r, v_r, bpm = bm
+    B, Hh, Wh = valid.shape
+    _, Hp, Wp = r_res.shape
+    K8 = _ceil_to(max(K, 8), 8)
+    rr_int = torch.round(r_res).to(torch.int32)     # in [bpm, bpm + K8]
+    q = torch.full((B, Hp // 8, (Wp + 127) // 128), int(bpm) + K8 // 2,
+                   dtype=torch.int32, device=r_res.device)
+    d_r_m = torch.where(v_r, d_r, 1.0e9)            # invalid right -> fail
+    d_at = gather(d_r_m, rr_int, q, K8 // 2 + 1)[:, :Hh, :Wh]
+    xs = torch.arange(Wh, dtype=torch.int32, device=r_res.device)
+    xw = xs - rr_int[:, :Hh, :Wh]
+    in_w = (xw >= 0) & (xw < Wh)
+    max_diff = torch.as_tensor(max_diff, dtype=torch.float32,
+                               device=r_res.device)
+    consistent = (d_at - r_res[:, :Hh, :Wh]).abs() <= max_diff
+    return valid & in_w & consistent

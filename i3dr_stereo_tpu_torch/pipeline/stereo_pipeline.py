@@ -1,0 +1,136 @@
+"""The stereo pipeline: match -> depth-range clamp -> depth, cloud, crop
+(torch port of ``i3dr_stereo_tpu.pipeline.stereo_pipeline``).
+
+PyTorch runs eagerly, so the reference's jit cache and device-cached
+scalars have no counterpart: every call runs the current config, and its
+numeric fields (P1/P2, uniqueness, backmatch distance) plus the depth
+bounds reach the kernels as runtime scalars — changing them through
+:meth:`StereoPipeline.update_config` or ``update_cloud`` rebuilds nothing.
+The device is explicit: a CPU pipeline runs the plain torch twins of the
+kernels, a CUDA pipeline runs the kernels and never falls back.
+
+Rectification (the remap kernel G) is not ported yet:
+``rectify_inputs=True`` raises ``NotImplementedError``, so inputs must
+already be rectified (as the CLI ``replay``/``live`` commands and the
+demo pipeline run the JAX pipeline).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from i3dr_stereo_tpu_torch.config.params import MatcherConfig, PointCloudConfig
+from i3dr_stereo_tpu_torch.core.camera import StereoRig
+from i3dr_stereo_tpu_torch.core.frame import to_mono_f32
+from i3dr_stereo_tpu_torch.matchers.base import MatchResult
+from i3dr_stereo_tpu_torch.matchers.registry import MATCHER_REGISTRY
+from i3dr_stereo_tpu_torch.ops.depth import (
+    MISSING_Z,
+    crop_by_disparity,
+    disparity_to_depth,
+    disparity_to_pointcloud,
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class PipelineResult:
+    """Everything the reference publishes."""
+
+    rect_left: torch.Tensor            # (..., H, W) float32
+    rect_right: torch.Tensor
+    disparity: torch.Tensor            # absolute pixels, float32
+    valid: torch.Tensor                # bool
+    depth: Optional[torch.Tensor] = None        # metres, 0 where invalid
+    depth_valid: Optional[torch.Tensor] = None
+    points: Optional[dict] = None               # {"xyz","valid","rgb"} flattened
+    cropped_left: Optional[torch.Tensor] = None
+
+    def disparity_missing_z(self) -> torch.Tensor:
+        return torch.where(self.valid, self.disparity, MISSING_Z)
+
+
+def _resolve_device(device) -> torch.device:
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"device {dev} requested but CUDA is not "
+                               "available")
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {dev}: expected cpu or cuda")
+    return dev
+
+
+@dataclasses.dataclass
+class StereoPipeline:
+    """Host-side facade: calibration constants + the per-frame step."""
+
+    rig: StereoRig
+    config: MatcherConfig
+    cloud: PointCloudConfig = dataclasses.field(default_factory=PointCloudConfig)
+    device: torch.device | str = "cpu"
+    compute_depth: bool = True
+    compute_points: bool = True
+    compute_crop: bool = False
+    rectify_inputs: bool = False
+
+    def __post_init__(self):
+        self.config = self.config.sanitize()
+        self.device = _resolve_device(self.device)
+        if self.rectify_inputs:
+            raise NotImplementedError(
+                "rectification (remap kernel G) is not ported yet "
+                "(ROADMAP.md Queue 2 G); pass rectified images with "
+                "rectify_inputs=False")
+        self._Q = torch.as_tensor(self.rig.Q, dtype=torch.float32,
+                                  device=self.device)
+
+    # -- live reconfigure ------------------------------------------------------
+    def update_config(self, **kw) -> None:
+        self.config = self.config.replace(**kw)
+
+    def update_cloud(self, **kw) -> None:
+        self.cloud = dataclasses.replace(self.cloud, **kw)
+
+    # -- the step --------------------------------------------------------------
+    def _scalar(self, v) -> torch.Tensor:
+        return torch.tensor(v, dtype=torch.float32, device=self.device)
+
+    def process(self, left, right) -> PipelineResult:
+        """(H, W) or (B, H, W) rectified images (mono or BGR, uint8 or
+        float) -> PipelineResult on the pipeline's device."""
+        cfg = self.config
+        l = to_mono_f32(torch.as_tensor(left, device=self.device))
+        r = to_mono_f32(torch.as_tensor(right, device=self.device))
+        res: MatchResult = MATCHER_REGISTRY[cfg.algorithm](l, r, cfg)
+        disp, valid = res.disparity, res.valid
+
+        # depth-range -> disparity clamp (generate_disparity.cpp:449-452):
+        # disparities implying Z outside [depth_min, depth_max] are
+        # missing; a bound <= 0 is disabled
+        depth_min = self._scalar(self.cloud.depth_min)
+        depth_max = self._scalar(self.cloud.depth_max)
+        fx_t = self._scalar(self.rig.fx * self.rig.baseline)
+        min_disp_from_depth = fx_t / torch.where(depth_max > 0, depth_max,
+                                                 torch.inf)
+        valid = valid & ((depth_max <= 0) | (disp >= min_disp_from_depth))
+        max_disp_from_depth = fx_t / torch.clamp(depth_min, min=1e-6)
+        valid = valid & ((depth_min <= 0) | (disp <= max_disp_from_depth))
+
+        depth = depth_valid = points = cropped = None
+        if self.compute_depth:
+            depth, depth_valid = disparity_to_depth(
+                disp, valid, self._Q, depth_min, depth_max)
+        if self.compute_points:
+            points = disparity_to_pointcloud(disp, valid, self._Q, l,
+                                             depth_min, depth_max)
+        if self.compute_crop:
+            cropped = crop_by_disparity(l, disp, valid)
+        return PipelineResult(
+            rect_left=l, rect_right=r, disparity=disp, valid=valid,
+            depth=depth, depth_valid=depth_valid, points=points,
+            cropped_left=cropped)
+
+    __call__ = process

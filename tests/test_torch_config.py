@@ -1,0 +1,187 @@
+"""Torch port: the framework-free copies (config, camera, synthetic scene),
+the state converters and the port's guards, against the JAX package."""
+
+import dataclasses
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from i3dr_stereo_tpu.config import params as ref_params
+from i3dr_stereo_tpu.core import camera as ref_camera
+from i3dr_stereo_tpu.io.synthetic import layered_scene as ref_layered_scene
+from i3dr_stereo_tpu_torch.config import params
+from i3dr_stereo_tpu_torch.convert import config_from_reference, rig_from_reference
+from i3dr_stereo_tpu_torch.core import camera
+from i3dr_stereo_tpu_torch.io.synthetic import layered_scene
+
+torch.set_num_threads(2)
+
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _fields(cfg):
+    return {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+
+
+@pytest.mark.parametrize("alg", list(ref_params.Algorithm))
+def test_algorithm_defaults_field_by_field(alg):
+    ref = ref_params.ALGORITHM_DEFAULTS[alg]
+    port = params.ALGORITHM_DEFAULTS[params.Algorithm(int(alg))]
+    assert [f.name for f in dataclasses.fields(port)] == \
+        [f.name for f in dataclasses.fields(ref)]
+    for name, v in _fields(ref).items():
+        pv = getattr(port, name)
+        if isinstance(v, (ref_params.Algorithm, ref_params.CostFunction)):
+            assert pv.name == v.name and pv.value == v.value, name
+        else:
+            assert pv == v and type(pv) is type(v), name
+
+
+def test_enums_and_cloud_config_match():
+    assert [(a.name, a.value) for a in params.Algorithm] == \
+        [(a.name, a.value) for a in ref_params.Algorithm]
+    assert [(c.name, c.value) for c in params.CostFunction] == \
+        [(c.name, c.value) for c in ref_params.CostFunction]
+    assert _fields(params.PointCloudConfig()) == \
+        _fields(ref_params.PointCloudConfig())
+
+
+@pytest.mark.parametrize("kw", [
+    dict(window_size=14, disparity_range=70, census_width=20,
+         census_height=8),
+    dict(disparity_range=256, max_pyramid_level=4, speckle_size=0,
+         speckle_downsample=2, p1=0.3, uniqueness_ratio=12.0),
+])
+def test_sanitize_replace_and_convert(kw):
+    base = ref_params.ALGORITHM_DEFAULTS[ref_params.Algorithm.I3DRSGM]
+    ref = base.replace(**kw)
+    port = config_from_reference(base).replace(**kw)
+    assert port == config_from_reference(ref)
+    assert _fields(port)["census_width"] == ref.census_width
+    with pytest.raises(ValueError):
+        params.MatcherConfig(prefilter_type="bogus").sanitize()
+
+
+def test_calc_q_and_rig_match(tmp_path):
+    ref = ref_camera.StereoRig.synthetic(320, 240, fx=410.0, baseline_m=0.12)
+    port = rig_from_reference(ref)
+    np.testing.assert_array_equal(port.Q, ref.Q)
+    np.testing.assert_array_equal(camera.calc_q(port.left, port.right),
+                                  ref_camera.calc_q(ref.left, ref.right))
+    assert (port.fx, port.baseline, port.width, port.height) == \
+        (ref.fx, ref.baseline, ref.width, ref.height)
+    syn = camera.StereoRig.synthetic(320, 240, fx=410.0, baseline_m=0.12)
+    np.testing.assert_array_equal(syn.Q, ref.Q)
+
+
+def test_rig_from_yaml_matches(tmp_path):
+    yaml = pytest.importorskip("yaml")
+    ref = ref_camera.StereoRig.synthetic(640, 480, fx=580.0)
+    ref = ref_camera.StereoRig(
+        dataclasses.replace(ref.left, D=np.array([0.1, -0.02, 0.001, 0.0, 0.0])),
+        ref.right)
+    paths = []
+    for side, cam in (("left", ref.left), ("right", ref.right)):
+        p = tmp_path / f"{side}.yaml"
+        p.write_text(yaml.safe_dump(cam.to_dict()))
+        paths.append(str(p))
+    port = camera.StereoRig.from_yaml(*paths)
+    back = ref_camera.StereoRig.from_yaml(*paths)
+    for a, b in ((port.left, back.left), (port.right, back.right)):
+        for name in ("K", "D", "R", "P"):
+            np.testing.assert_array_equal(getattr(a, name), getattr(b, name))
+    np.testing.assert_array_equal(port.Q, back.Q)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(height=96, width=128, max_disp=20, seed=4),
+    dict(height=64, width=160, max_disp=24, seed=7, layers=5,
+         background_disp=5, right_gain=1.1, noise_sigma=2.0),
+    dict(height=80, width=120, max_disp=16, seed=3, fractional=True),
+])
+def test_layered_scene_bit_identical(kw):
+    a, b = layered_scene(**kw), ref_layered_scene(**kw)
+    for f in ("left", "right", "disparity", "occluded", "valid"):
+        x, y = getattr(a, f), getattr(b, f)
+        assert x.dtype == y.dtype, f
+        np.testing.assert_array_equal(x, y, err_msg=f)
+
+
+def test_to_mono_matches_reference():
+    import jax.numpy as jnp
+
+    from i3dr_stereo_tpu.core.frame import to_mono_f32 as ref_mono
+    from i3dr_stereo_tpu_torch.core.frame import to_mono_f32
+
+    rng = np.random.default_rng(1)
+    bgr = rng.integers(0, 256, (2, 17, 23, 3)).astype(np.uint8)
+    mono = rng.uniform(0, 255, (17, 23)).astype(np.float32)
+    np.testing.assert_allclose(to_mono_f32(torch.from_numpy(bgr)).numpy(),
+                               np.asarray(ref_mono(jnp.asarray(bgr))),
+                               rtol=1e-6, atol=1e-4)
+    np.testing.assert_array_equal(to_mono_f32(torch.from_numpy(mono)).numpy(),
+                                  mono)
+
+
+def test_port_imports_no_jax():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import i3dr_stereo_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "       or m == 'i3dr_stereo_tpu' or m.startswith('i3dr_stereo_tpu.')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=_REPO,
+                         env=dict(os.environ, PYTHONPATH=_REPO),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def test_cuda_device_raises_without_cuda():
+    from i3dr_stereo_tpu_torch.pipeline.stereo_pipeline import StereoPipeline
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    cfg = params.ALGORITHM_DEFAULTS[params.Algorithm.I3DRSGM].replace(
+        speckle_size=0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        StereoPipeline(camera.StereoRig.synthetic(64, 48), cfg, device="cuda")
+    with pytest.raises(ValueError, match="device"):
+        StereoPipeline(camera.StereoRig.synthetic(64, 48), cfg, device="meta")
+
+
+def test_kernel_wrappers_reject_non_cuda_accelerator_tensors():
+    from i3dr_stereo_tpu_torch.ops.block_gather import block_shift_gather
+
+    src = torch.zeros((1, 8, 16), device="meta")
+    idx = torch.zeros((1, 8, 16), dtype=torch.int32, device="meta")
+    q = torch.zeros((1, 1, 1), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        block_shift_gather(src, idx, q, 4)
+
+
+def test_unported_features_raise():
+    from i3dr_stereo_tpu_torch.matchers.registry import MATCHER_REGISTRY
+    from i3dr_stereo_tpu_torch.pipeline.stereo_pipeline import StereoPipeline
+
+    rig = camera.StereoRig.synthetic(64, 48)
+    base = params.ALGORITHM_DEFAULTS[params.Algorithm.I3DRSGM]
+    img = np.zeros((48, 64), np.float32)
+    with pytest.raises(NotImplementedError, match="remap"):
+        StereoPipeline(rig, base.replace(speckle_size=0), rectify_inputs=True)
+    pipe = StereoPipeline(rig, base)  # speckle_size=100 by default
+    with pytest.raises(NotImplementedError, match="speckle"):
+        pipe.process(img, img)
+    pipe.update_config(speckle_size=0, pyramid=False)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        pipe.process(img, img)
+    for alg, fn in MATCHER_REGISTRY.items():
+        if alg != params.Algorithm.I3DRSGM:
+            with pytest.raises(NotImplementedError, match="ROADMAP"):
+                fn(img, img, params.ALGORITHM_DEFAULTS[alg])
