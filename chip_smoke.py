@@ -10,25 +10,40 @@ final result line) on the first thing that is wrong:
 
 1. prints the card (nvidia-smi name and power limit) and the versions;
 2. builds every kernel of the port from ``i3dr_stereo_tpu_torch/csrc``;
-3. runs each kernel against its plain torch twin on the card: at every
-   level of the flagship pyramid at its own shape (2448x2048, 1224x1024,
-   612x512 and 306x256, padded to multiples of 128; D = 32, NW = 3,
-   4 paths, P1/P2 = 0.1/0.8, bpm = -16 with the warp gather, and the
-   coarsest level unwarped from the minimum disparity; subpixel on level
-   0), with each level's radius-17 backmatch gather, and at small ragged
-   shapes with bpm > 0 and bpm < 0 and 4 and 8 paths; costs and path
-   sums must be bit-equal, valid masks identical, disparities within
-   1e-4, gathers bit-equal;
-4. drives ``StereoPipeline(device="cuda")`` on a 2448x2048 layered scene
-   at the flagship configuration (speckle off, inputs already rectified):
-   every kernel must launch during that run, the median error against
-   ground truth must be below 0.25 px, and the same matcher through the
-   plain twins on the card must agree at 256x320;
-5. times the kernel path (CUDA events, median of 10 frames after
-   warm-up) and the plain path (once), each with the card's name and
-   power limit;
-6. profiles five back-to-back frames: device busy time, idle share and
-   the device time of the largest kernels, all from that one window.
+3. runs each kernel against its plain torch twin on the card:
+   - census cost, SGM paths, WTA and row gather at every level of the
+     flagship pyramid at its own shape (2448x2048, 1224x1024, 612x512
+     and 306x256, padded to multiples of 128; D = 32, NW = 3, 4 paths,
+     P1/P2 = 0.1/0.8, bpm = -16 with the warp gather, and the coarsest
+     level unwarped from the minimum disparity; subpixel on level 0),
+     with each level's radius-17 backmatch gather, and at small ragged
+     shapes with bpm > 0 and bpm < 0, 4 and 8 paths, 9x9 and 17x17
+     census (the unclamped forward plane); costs and path sums
+     bit-equal, valid masks identical, disparities within 1e-4, gathers
+     bit-equal;
+   - remap at 2448x2048 on the distorted rig of ``bench.py``
+     (pipeline_batch; both cameras), uint8 and float32 sources, cubic
+     and linear, B = 1 and 2: bit-equal, each timed;
+   - the speckle keep-mask: on level 0's disparities of the flagship
+     scene after the downsample-2 front-end (1224x1024, S = 25, max_diff
+     1.0), on the same disparities at full 2448x2048 (S = 100 / 0.5), on
+     a smooth one-component frame, on random blob fields (S = 12, 100,
+     200) and on a batch of ragged 131x45 frames: identical;
+4. drives the product's frame: raw uint8 images into
+   ``StereoPipeline(device="cuda")`` with ``rectify_inputs=True`` (bicubic)
+   and ``bench.py:_flagship_cfg`` unchanged (speckle 100 / 0.5 at
+   downsample 2), on a 2448x2048 layered scene: on the ideal rig every
+   kernel must launch during one frame and the median error against
+   ground truth must be below 0.25 px (density > 0.5); on the distorted
+   rig the outputs must be finite; the same matcher through the plain
+   twins on the card must agree at 256x320;
+5. times the full path (CUDA events, median of 10 frames after warm-up),
+   the matcher alone and through the twins (once), and the path without
+   rectification and speckle (rectified float inputs), each with the
+   card's name and power limit;
+6. profiles five back-to-back frames of the full path: device busy
+   time, idle share and the device time of the largest kernels, all
+   from that one window.
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -64,7 +79,17 @@ SOURCES = {
                 "i3dr_stereo_tpu/ops/sgm_fused_t.py:423"),
     "row_gather": ("i3dr_stereo_tpu_torch/csrc/row_gather.cu",
                    "i3dr_stereo_tpu/ops/block_gather.py:109"),
+    "remap": ("i3dr_stereo_tpu_torch/csrc/remap.cu",
+              "i3dr_stereo_tpu/ops/rectify_pallas.py:279"),
+    "speckle_ccl": ("i3dr_stereo_tpu_torch/csrc/speckle_ccl.cu",
+                    "i3dr_stereo_tpu/ops/speckle_pallas.py:304,340"),
 }
+
+
+# substrings of the port's CUDA kernel names, for the profile table
+KERNEL_SYMBOLS = ("census_cost_kernel", "sgm_path_kernel", "sum_wta_kernel",
+                  "row_gather_kernel", "remap_kernel", "ccl_local",
+                  "ccl_boundary", "ccl_count", "ccl_keep")
 
 
 def fail(msg: str) -> None:
@@ -102,11 +127,40 @@ def card_line() -> str:
 
 
 def flagship_cfg(params):
-    """``bench.py:_flagship_cfg`` with the speckle filter off (kernel F is
-    not ported yet)."""
+    """``bench.py:_flagship_cfg``."""
     return params.ALGORITHM_DEFAULTS[params.Algorithm.I3DRSGM].replace(
-        disparity_range=256, max_pyramid_level=4, speckle_size=0,
+        disparity_range=256, max_pyramid_level=4, speckle_size=100,
         speckle_downsample=2, median_filter=True)
+
+
+def rodrigues(rvec) -> np.ndarray:
+    """Rotation matrix of a rotation vector (what cv2.Rodrigues gives)."""
+    r = np.asarray(rvec, dtype=np.float64)
+    theta = np.linalg.norm(r)
+    k = r / theta
+    kx = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+    return (np.cos(theta) * np.eye(3) + (1 - np.cos(theta)) * np.outer(k, k)
+            + np.sin(theta) * kx)
+
+
+def distorted_rig(camera):
+    """The distorted 2448x2048 calibration of ``bench.py``'s pipeline_batch
+    row (radial/tangential distortion and a rotation per view)."""
+    K = np.array([[2400.0, 0, 1224.0], [0, 2400.0, 1024.0], [0, 0, 1]])
+    D = np.array([-0.18, 0.06, 0.0008, -0.0006, 0.0])
+    Pl = np.array([[2380.0, 0, 1220.0, 0], [0, 2380.0, 1022.0, 0],
+                   [0, 0, 1, 0]])
+    Pr = Pl.copy()
+    Pr[0, 3] = -2380.0 * 0.3      # Tx = -fx * B
+    Rl = rodrigues([0.004, -0.006, 0.002])
+    Rr = rodrigues([-0.003, 0.005, -0.002])
+    return camera.StereoRig(
+        left=camera.CameraModel(W_FULL, H_FULL, K, D, Rl, Pl),
+        right=camera.CameraModel(W_FULL, H_FULL, K, D, Rr, Pr))
+
+
+def raw_u8(img) -> np.ndarray:
+    return np.clip(np.rint(img), 0, 255).astype(np.uint8)
 
 
 # ---------------------------------------------------------------------------
@@ -130,11 +184,17 @@ def compare_level(sf, bg, cl, cr, *, bpm, H_real, W_real, directions, ur,
     then the backmatch lookup (row_gather at radius D/2 + 1 around the
     window midpoint) on the level's own right-anchored disparities."""
     D = 32
-    C = sf.census_cost(cl, cr, D, bpm=bpm, H_real=H_real, W_real=W_real)
-    Cp = sf.census_cost_plain(cl, cr, D, bpm=bpm, H_real=H_real,
-                              W_real=W_real)
+    C, Cw = sf.census_cost(cl, cr, D, bpm=bpm, H_real=H_real, W_real=W_real)
+    Cp, Cwp = sf.census_cost_plain(cl, cr, D, bpm=bpm, H_real=H_real,
+                                   W_real=W_real)
     torch.cuda.synchronize()
     check(torch.equal(C, Cp), f"{label}: census_cost differs from its twin")
+    check((Cw is None) == (Cwp is None) == (cl.shape[-1] * 32 <= 254),
+          f"{label}: unclamped plane present iff more than 254 bits")
+    if Cw is not None:
+        check(torch.equal(Cw, Cwp),
+              f"{label}: census_cost's unclamped plane differs")
+        check(bool((Cw > 254).any()), f"{label}: no distance above 254")
     stats["census_cost"]["err"] = max(
         stats["census_cost"]["err"],
         int((C.int() - Cp.int()).abs().max().item()))
@@ -146,8 +206,9 @@ def compare_level(sf, bg, cl, cr, *, bpm, H_real, W_real, directions, ur,
     pen = dict(zip(dirs, pens))
     parts = []
     for dy, dx in order:
-        k = sf.sgm_path(C, dy, dx, *pen[(dy, dx)])
-        p = sf.sgm_path_plain(C, dy, dx, *pen[(dy, dx)])
+        Cd = Cw if (dy, dx) == (0, 1) and Cw is not None else C
+        k = sf.sgm_path(Cd, dy, dx, *pen[(dy, dx)])
+        p = sf.sgm_path_plain(Cd, dy, dx, *pen[(dy, dx)])
         torch.cuda.synchronize()
         err = (k - p).abs().max().item()
         stats["sgm_path"]["err"] = max(stats["sgm_path"]["err"], err)
@@ -273,19 +334,144 @@ def phase_kernels(stats):
             stats=stats, subpixel=(level == 0 and cfg.subpixel),
             time_it=(level == 0))
 
-    # small ragged shapes, both signs of bpm, 4 and 8 paths, uniqueness on
-    for bpm, dirs, ur in ((5, 4, 0.0), (-7, 8, 10.0), (0, 8, 0.0)):
+    # small ragged shapes, both signs of bpm, 4 and 8 paths, uniqueness
+    # on, and a 17x17 census against the negated image (distances up to
+    # 288: the unclamped forward plane)
+    for bpm, dirs, ur, win in ((5, 4, 0.0, 9), (-7, 8, 10.0, 9),
+                               (0, 8, 0.0, 9), (0, 4, 0.0, 17)):
         a = torch.tensor(rng.uniform(0, 255, (2, 48, 136)),
                          dtype=torch.float32, device=dev)
-        b = torch.roll(a, -3, 2) + torch.tensor(
-            rng.normal(0, 4, a.shape), dtype=torch.float32, device=dev)
+        b = (-a if win == 17 else torch.roll(a, -3, 2) + torch.tensor(
+            rng.normal(0, 4, a.shape), dtype=torch.float32, device=dev))
         pens = [(float(rng.uniform(0.05, 2)), float(rng.uniform(2, 9)))
                 for _ in range(dirs)]
-        compare_level(sf, bg, census_transform(a, 9, 9),
-                      census_transform(b, 9, 9), bpm=bpm, H_real=45,
+        compare_level(sf, bg, census_transform(a, win, win),
+                      census_transform(b, win, win), bpm=bpm, H_real=45,
                       W_real=131, directions=dirs, ur=ur, pens=pens,
                       label=f"ragged 45x131 in 48x136 bpm={bpm} "
-                            f"paths={dirs} ur={ur}", stats=stats)
+                            f"paths={dirs} ur={ur} census {win}x{win}",
+                      stats=stats)
+
+    phase_remap(stats)
+    phase_speckle(stats, sc, cfg)
+
+
+def phase_remap(stats):
+    """remap vs its twin at the full frame on the distorted rig."""
+    from i3dr_stereo_tpu_torch.core import camera
+    from i3dr_stereo_tpu_torch.ops import rectify
+
+    rng = np.random.default_rng(5)
+    rig = distorted_rig(camera)
+    for side, cam in (("left", rig.left), ("right", rig.right)):
+        for interp in ("cubic", "linear"):
+            m = rectify.make_rectify_map(cam, interpolation=interp,
+                                         device=DEVICE)
+            for B in (1, 2):
+                shape = (H_FULL, W_FULL) if B == 1 else (B, H_FULL, W_FULL)
+                u8 = torch.tensor(rng.integers(0, 256, shape, dtype=np.uint8),
+                                  device=DEVICE)
+                for src in (u8, u8.float()):
+                    out = rectify.remap(src, m)
+                    ref = rectify.remap_plain(src, m)
+                    torch.cuda.synchronize()
+                    err = (out - ref).abs().max().item()
+                    stats["remap"]["err"] = max(stats["remap"]["err"], err)
+                    label = (f"remap {side} {interp} {str(src.dtype)[6:]} "
+                             f"B={B}")
+                    check(torch.equal(out, ref),
+                          f"{label}: differs from its twin (max {err})")
+                    ms = gpu_ms(lambda: rectify.remap(src, m))
+                    plain = gpu_ms(lambda: rectify.remap_plain(src, m),
+                                   iters=1, warmup=0)
+                    if (side, interp, B, src.dtype) == ("left", "cubic", 1,
+                                                        torch.uint8):
+                        stats["remap"]["ms"] = ms
+                        stats["remap"]["plain_ms"] = plain
+                    print(f"{label} {W_FULL}x{H_FULL}: bit-equal, {ms:.4f} ms"
+                          f" (plain {plain:.3f} ms)", flush=True)
+
+
+def compare_speckle(sp, d, v, S, md, label, stats, time_it=False):
+    """speckle_ccl vs its twin on (B, H, W) disparities, identical."""
+    keep = sp.speckle_keep(d, v, S, md)
+    ref = sp.speckle_keep_plain(d, v, S, md)
+    torch.cuda.synchronize()
+    n_diff = int((keep != ref).sum().item())
+    stats["speckle_ccl"]["err"] = max(stats["speckle_ccl"]["err"],
+                                      float(n_diff > 0))
+    check(n_diff == 0, f"{label}: speckle keep-mask differs from its twin "
+          f"on {n_diff} px")
+    removed = int((v & ~keep).sum().item())
+    msg = (f"{label}: keep-mask identical ({removed} of "
+           f"{int(v.sum().item())} valid px removed)")
+    if time_it:
+        ms = gpu_ms(lambda: sp.speckle_keep(d, v, S, md))
+        plain = gpu_ms(lambda: sp.speckle_keep_plain(d, v, S, md), iters=1,
+                       warmup=0)
+        msg += f", {ms:.4f} ms (plain {plain:.2f} ms)"
+    print(msg, flush=True)
+    return time_it and (ms, plain)
+
+
+def phase_speckle(stats, sc, cfg):
+    """The keep-mask kernel vs its twin on the main path's inputs (level
+    0's disparities of the flagship scene, captured from one kernel run
+    of the matcher) and on fields made to stress it."""
+    from i3dr_stereo_tpu_torch.matchers import pyramid as pyr
+    from i3dr_stereo_tpu_torch.ops import speckle as sp
+
+    captured = []
+
+    def capture(disp, valid, **kw):
+        captured.append((disp, valid, kw))
+        return sp.speckle_filter(disp, valid, **kw)
+
+    l = torch.tensor(sc.left, device=DEVICE)
+    r = torch.tensor(sc.right, device=DEVICE)
+    pyr.speckle_filter = capture
+    try:
+        pyr.pyramid_sgm_match(l, r, cfg)
+    finally:
+        pyr.speckle_filter = sp.speckle_filter
+    check(len(captured) == 1, f"speckle ran {len(captured)} times, not once")
+    d, v, kw = captured[0]
+    check(kw["downsample"] == 2 and kw["max_size"] == 100,
+          f"unexpected speckle arguments {kw}")
+    S, md = kw["max_size"], kw["max_diff"]
+    dd, vv = sp.block_min(d, v, 2)
+    S2, md2 = max(S // 4, 1), float(np.float32(md) * np.float32(2))
+    check(tuple(dd.shape) == (1, H_FULL // 2, W_FULL // 2), f"{dd.shape}")
+    ms, plain = compare_speckle(
+        sp, dd, vv, S2, md2, f"speckle flagship ds2 {W_FULL // 2}x"
+        f"{H_FULL // 2} S={S2} max_diff={md2}", stats, time_it=True)
+    stats["speckle_ccl"]["ms"], stats["speckle_ccl"]["plain_ms"] = ms, plain
+    compare_speckle(sp, d.contiguous(), v.contiguous(), S, md,
+                    f"speckle full {W_FULL}x{H_FULL} S={S} max_diff={md}",
+                    stats, time_it=True)
+
+    # a smooth slanted frame: one component, the longest union-find chains
+    yy, xx = torch.meshgrid(torch.arange(H_FULL, device=DEVICE),
+                            torch.arange(W_FULL, device=DEVICE),
+                            indexing="ij")
+    smooth = (0.05 * xx + 0.03 * yy).float()[None]
+    ones = torch.ones_like(smooth, dtype=torch.bool)
+    compare_speckle(sp, smooth, ones, 100, 0.5,
+                    f"speckle smooth one-component {W_FULL}x{H_FULL}", stats,
+                    time_it=True)
+
+    rng = np.random.default_rng(11)
+    for S in (12, 100, 200):
+        d = torch.tensor(rng.integers(0, 4, (1, 512, 640)) * 1.0,
+                         dtype=torch.float32, device=DEVICE)
+        v = torch.tensor(rng.random((1, 512, 640)) < 0.8, device=DEVICE)
+        compare_speckle(sp, d, v, S, 1.0, f"speckle blobs 640x512 S={S}",
+                        stats)
+    d = torch.tensor(rng.integers(0, 3, (3, 45, 131)) * 2.0,
+                     dtype=torch.float32, device=DEVICE)
+    v = torch.tensor(rng.random((3, 45, 131)) < 0.85, device=DEVICE)
+    compare_speckle(sp, d, v, 9, 1.0, "speckle batched ragged 3x131x45",
+                    stats)
 
 
 # ---------------------------------------------------------------------------
@@ -295,21 +481,26 @@ def phase_kernels(stats):
 def phase_main_path(stats, card):
     from i3dr_stereo_tpu_torch import _build
     from i3dr_stereo_tpu_torch.config import params
-    from i3dr_stereo_tpu_torch.core.camera import StereoRig
+    from i3dr_stereo_tpu_torch.core import camera
     from i3dr_stereo_tpu_torch.io.synthetic import layered_scene
     from i3dr_stereo_tpu_torch.matchers.pyramid import pyramid_sgm_match
     from i3dr_stereo_tpu_torch.pipeline.stereo_pipeline import StereoPipeline
 
     cfg = flagship_cfg(params)
     sc = layered_scene(H_FULL, W_FULL, **SCENE)
-    rig = StereoRig.synthetic(W_FULL, H_FULL, fx=580.0, baseline_m=0.3)
+    rig = camera.StereoRig.synthetic(W_FULL, H_FULL, fx=580.0,
+                                     baseline_m=0.3)
     # fx*T = 174: a 0.5..100 m window keeps disparities 1.7..348 px, so
     # the depth clamp leaves the scene's 16..200 px whole
     cloud = params.PointCloudConfig(depth_max=100.0, depth_min=0.5)
+    # the product's frame: raw uint8 in, bicubic rectification (the
+    # ideal rig's maps are the identity up to float64 rounding), speckle on
     pipe = StereoPipeline(rig, cfg, cloud, device=DEVICE, compute_depth=True,
                           compute_points=True, compute_crop=True)
-    left = torch.tensor(sc.left, device=DEVICE)
-    right = torch.tensor(sc.right, device=DEVICE)
+    check(pipe.rectify_inputs and pipe.config.speckle_size == 100,
+          "the main path must rectify and speckle-filter")
+    left = torch.tensor(raw_u8(sc.left), device=DEVICE)
+    right = torch.tensor(raw_u8(sc.right), device=DEVICE)
 
     pipe.process(left, right)  # warm-up
     torch.cuda.synchronize()
@@ -340,6 +531,23 @@ def phase_main_path(stats, card):
     check(density > 0.5, f"density {density} too low")
     check(med < MAX_MEDIAN_ERR, f"median error {med} >= {MAX_MEDIAN_ERR}")
 
+    # the distorted calibration: a real remap, finite outputs
+    pipe_d = StereoPipeline(distorted_rig(camera), cfg, cloud, device=DEVICE)
+    res_d = pipe_d.process(left, right)
+    torch.cuda.synchronize()
+    for name in ("rect_left", "rect_right", "disparity", "depth"):
+        t = getattr(res_d, name)
+        check(tuple(t.shape) == (H_FULL, W_FULL)
+              and bool(torch.isfinite(t).all()),
+              f"distorted rig: {name} not finite at full shape")
+    check(bool((res_d.rect_left != left.float()).any()),
+          "distorted rig: rectification changed nothing")
+    # the scene is already rectified, so the calibration's per-view
+    # rotations (0.007 rad apart about x) misalign its rows by ~17 px and
+    # leave almost nothing to match: this run checks the path, not accuracy
+    print(f"distorted rig: finite outputs, density "
+          f"{res_d.valid.float().mean().item():.4f}", flush=True)
+
     # the same matcher through the plain twins on the card, small scene
     small = layered_scene(256, 320, max_disp=40, seed=2)
     ls = torch.tensor(small.left, device=DEVICE)
@@ -356,15 +564,25 @@ def phase_main_path(stats, card):
 
     # timing
     frame_ms = gpu_ms(lambda: pipe.process(left, right), iters=10, warmup=1)
-    match_ms = gpu_ms(lambda: pyramid_sgm_match(left, right, cfg), iters=10,
+    rl, rr = res.rect_left, res.rect_right
+    match_ms = gpu_ms(lambda: pyramid_sgm_match(rl, rr, cfg), iters=10,
                       warmup=1)
     plain_match_ms = gpu_ms(
-        lambda: pyramid_sgm_match(left, right, cfg, plain=True),
+        lambda: pyramid_sgm_match(rl, rr, cfg, plain=True),
         iters=1, warmup=0)
-    print(f"timing [{card}]: pipeline {frame_ms:.3f} ms/frame "
+    print(f"timing [{card}]: full path (raw u8 -> rectify -> pyramid with "
+          f"speckle -> depth, cloud, crop) {frame_ms:.3f} ms/frame "
           f"({1000 / frame_ms:.2f} FPS), matcher kernels {match_ms:.3f} ms, "
           f"matcher plain twins {plain_match_ms:.1f} ms at "
           f"{W_FULL}x{H_FULL}", flush=True)
+    # for comparison: rectified float inputs, speckle off
+    pipe_r = StereoPipeline(rig, cfg.replace(speckle_size=0), cloud,
+                            device=DEVICE, compute_crop=True,
+                            rectify_inputs=False)
+    lf, rf = left.float(), right.float()
+    old_ms = gpu_ms(lambda: pipe_r.process(lf, rf), iters=10, warmup=1)
+    print(f"timing [{card}]: rectified float inputs, speckle off "
+          f"{old_ms:.3f} ms/frame", flush=True)
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
           f" GiB", flush=True)
     return pipe, left, right
@@ -404,7 +622,7 @@ def phase_profile(pipe, left, right, card, frames: int = 5):
         acc[1] += e - s
     busy /= 1e3                                   # us -> ms
     ours = sum(t for n, (_, t) in per_name.items()
-               if any(k + "_kernel" in n for k in SOURCES)) / 1e3
+               if any(k in n for k in KERNEL_SYMBOLS)) / 1e3
     htod = sum(n for name, (n, _) in per_name.items()
                if name.startswith("Memcpy HtoD"))
     print(f"profile [{card}]: {frames} frames, wall {wall / frames:.3f} "
@@ -413,10 +631,15 @@ def phase_profile(pipe, left, right, card, frames: int = 5):
           f"{htod / frames:.0f} of them host-to-device copies), idle "
           f"share {1 - busy / wall:.4f}; the port's kernels "
           f"{ours / frames:.3f} ms/frame", flush=True)
-    top = sorted(per_name.items(), key=lambda kv: -kv[1][1])[:12]
-    for name, (n, t) in top:
+    ranked = sorted(per_name.items(), key=lambda kv: -kv[1][1])
+    for name, (n, t) in ranked[:12]:
         print(f"  {t / 1e3 / frames:8.3f} ms/frame {n // frames:5d}x  "
               f"{name[:90]}", flush=True)
+    print("the port's kernels in that window:", flush=True)
+    for name, (n, t) in ranked:
+        if any(k in name for k in KERNEL_SYMBOLS):
+            print(f"  {t / 1e3 / frames:8.3f} ms/frame {n // frames:5d}x  "
+                  f"{name[:90]}", flush=True)
 
 
 def main() -> int:
@@ -439,7 +662,7 @@ def main() -> int:
     print(f"built {lib.name} in {time.perf_counter() - t0:.1f} s", flush=True)
     log = (lib.parent / "build.log").read_text()
     for line in log.splitlines():
-        if "registers" in line or "spill" in line:
+        if any(k in line for k in ("entry function", "registers", "spill")):
             print("  " + line.strip(), flush=True)
 
     stats = {k: {"err": 0.0, "ms": None, "plain_ms": None, "launches": 0}

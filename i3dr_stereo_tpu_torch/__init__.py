@@ -8,7 +8,8 @@ first use by :mod:`i3dr_stereo_tpu_torch._build`) with a plain torch twin
 beside it. A tensor's device decides which runs: a CPU tensor takes the
 twin, a CUDA tensor launches the kernel or raises.
 
-Ported so far: the flagship pyramid census-SGM path
-(``pipeline.stereo_pipeline.StereoPipeline`` with ``Algorithm.I3DRSGM``)
-on rectified inputs, without the speckle filter (ROADMAP.md).
+Ported so far: the flagship frame — ``pipeline.stereo_pipeline.
+StereoPipeline`` with ``Algorithm.I3DRSGM``: bicubic rectification of raw
+images, the coarse-to-fine pyramid census SGM with the exact speckle
+filter, depth, point cloud and crop (ROADMAP.md lists what comes next).
 """

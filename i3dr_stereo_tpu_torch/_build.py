@@ -35,21 +35,27 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 # kernel name -> launches since the last reset_launches()
-LAUNCHES = {"census_cost": 0, "sgm_path": 0, "sum_wta": 0, "row_gather": 0}
+LAUNCHES = {"census_cost": 0, "sgm_path": 0, "sum_wta": 0, "row_gather": 0,
+            "remap": 0, "speckle_ccl": 0}
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 # C entry -> argtypes (pointers and the stream as c_void_p: a bare Python
 # int would be passed as a 32-bit int and cut)
 _SIGNATURES = {
-    # cl, cr, C, B, H, W, NW, D, bpm, H_real, W_real, stream
-    "i3dr_census_cost": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
-    # C, out, B, H, W, dy, dx, p1, p2, stream
-    "i3dr_sgm_path": (_P, _P, _I, _I, _I, _I, _I, _F, _F, _P),
+    # cl, cr, C, Cw (or null), B, H, W, NW, D, bpm, H_real, W_real, stream
+    "i3dr_census_cost": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # C, wide (C is int16), out, B, H, W, dy, dx, p1, p2, stream
+    "i3dr_sgm_path": (_P, _I, _P, _I, _I, _I, _I, _I, _F, _F, _P),
     # C, parts (host array of device pointers), n_down, n_up, disp,
     # n_pix, subpixel, uniqueness_ratio, stream
     "i3dr_sum_wta": (_P, _P, _I, _I, _P, _L, _I, _F, _P),
     # src, idx, q, out, B, H, W, Hq, Wq, radius, stream
     "i3dr_row_gather": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # src, src_u8, flat_idx, wx, wy, out, B, H, W, src_h, src_w, pad, taps,
+    # stream
+    "i3dr_remap": (_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # d, valid, labels, sizes, keep, B, H, W, max_size, max_diff, stream
+    "i3dr_speckle_ccl": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
 }
 
 

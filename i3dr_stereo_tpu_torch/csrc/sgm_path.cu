@@ -13,6 +13,11 @@
 // A path enters the image (and re-enters at the edge column of a
 // diagonal) with a zero carry, exactly the TPU's zeroed entering column.
 //
+// The cost is C (uint8, 255 = invalid) or, for the forward-horizontal
+// direction of a census window with more than 254 bits, census_cost's
+// int16 unclamped plane (negative = invalid): the TPU's _fwd_kernel recurs
+// on the unclamped hamming distance.
+//
 // Design: one warp per scanline, lane = disparity (D = 32). The carry
 // lives in a register; min_d is a 5-step shuffle butterfly; d-1 / d+1 are
 // one __shfl_up/__shfl_down with 1e9 at the ends. Arithmetic is the
@@ -34,7 +39,19 @@ namespace {
 
 constexpr int UNROLL = 8;
 
-__global__ void sgm_path_kernel(const uint8_t* __restrict__ C,
+template <typename T>
+__device__ __forceinline__ float cost_of(int c);
+template <>
+__device__ __forceinline__ float cost_of<uint8_t>(int c) {
+  return c == i3dr::SENTINEL ? i3dr::BIG : (float)c;
+}
+template <>
+__device__ __forceinline__ float cost_of<int16_t>(int c) {
+  return c < 0 ? i3dr::BIG : (float)c;
+}
+
+template <typename T>
+__global__ void sgm_path_kernel(const T* __restrict__ C,
                                 float* __restrict__ out, int B, int H, int W,
                                 int dy, int dx, int n_lines, float p1,
                                 float p2) {
@@ -65,7 +82,7 @@ __global__ void sgm_path_kernel(const uint8_t* __restrict__ C,
 
   const long long stride = ((long long)dy * W + dx) * i3dr::WARP;
   const long long base = (((long long)b * H + y) * W + x) * i3dr::WARP + lane;
-  const uint8_t* cp = C + base;
+  const T* cp = C + base;
   float* op = out + base;
 
   float prev = 0.0f;
@@ -77,7 +94,7 @@ __global__ void sgm_path_kernel(const uint8_t* __restrict__ C,
 #pragma unroll
     for (int k = 0; k < UNROLL; ++k) {
       if (s0 + k < len) {  // uniform across the warp
-        const float c = cb[k] == i3dr::SENTINEL ? i3dr::BIG : (float)cb[k];
+        const float c = cost_of<T>(cb[k]);
         const float m = i3dr::warp_min(prev);
         float up = __shfl_up_sync(i3dr::FULL, prev, 1);    // L(d-1)
         float dn = __shfl_down_sync(i3dr::FULL, prev, 1);  // L(d+1)
@@ -95,8 +112,9 @@ __global__ void sgm_path_kernel(const uint8_t* __restrict__ C,
 
 }  // namespace
 
-extern "C" int i3dr_sgm_path(const void* C, void* out, int B, int H, int W,
-                             int dy, int dx, float p1, float p2,
+// wide = 0: C is uint8; wide = 1: C is census_cost's int16 plane
+extern "C" int i3dr_sgm_path(const void* C, int wide, void* out, int B, int H,
+                             int W, int dy, int dx, float p1, float p2,
                              void* stream) {
   if ((dy == 0 && dx == 0) || dy < -1 || dy > 1 || dx < -1 || dx > 1)
     return (int)cudaErrorInvalidValue;
@@ -105,7 +123,13 @@ extern "C" int i3dr_sgm_path(const void* C, void* out, int B, int H, int W,
   if (threads_total == 0) return 0;
   const int threads = 128;
   const long long blocks = (threads_total + threads - 1) / threads;
-  sgm_path_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)C, (float*)out, B, H, W, dy, dx, n_lines, p1, p2);
+  if (wide)
+    sgm_path_kernel<int16_t>
+        <<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+            (const int16_t*)C, (float*)out, B, H, W, dy, dx, n_lines, p1, p2);
+  else
+    sgm_path_kernel<uint8_t>
+        <<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+            (const uint8_t*)C, (float*)out, B, H, W, dy, dx, n_lines, p1, p2);
   return (int)cudaGetLastError();
 }

@@ -17,12 +17,15 @@ level searches from the configured minimum disparity. Per level:
    ``sgm_path``, ``sum_wta``);
 4. true backmatching against the right-anchored WTA of the same cost
    volume, looked up with ``block_shift_gather``;
-5. masked 3x3 median; between levels, invalid pixels take the local
+5. where the level has it (level 0 under :func:`profile_from_config`),
+   the speckle filter at ``cfg.speckle_downsample`` (``speckle_filter``,
+   the ``speckle_ccl`` kernel);
+6. masked 3x3 median; between levels, invalid pixels take the local
    median.
 
 Not ported yet, and raising ``NotImplementedError`` rather than skipping:
-the speckle filter (kernel F, ROADMAP.md Queue 2), half-pel subpix
-passes, occlusion handling and hole filling (Queue 1 item 10).
+half-pel subpix passes, occlusion handling and hole filling (ROADMAP.md
+Queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -48,6 +51,7 @@ from i3dr_stereo_tpu_torch.ops.sgm_fused_t import (
     census_sgm_wta,
     right_disparity_from_C,
 )
+from i3dr_stereo_tpu_torch.ops.speckle import speckle_filter
 
 
 def _downsample2(img: torch.Tensor) -> torch.Tensor:
@@ -119,10 +123,6 @@ def _reject_unported(passes) -> None:
             raise NotImplementedError(
                 "half-pel subpix passes are not ported yet "
                 "(ROADMAP.md Queue 1 item 10)")
-        if p.speckle and p.speckle_max_region > 0:
-            raise NotImplementedError(
-                "the speckle filter (kernel F) is not ported yet "
-                "(ROADMAP.md Queue 2 F); set speckle_size=0")
         if p.occlusion_detection:
             raise NotImplementedError(
                 "occlusion detection is not ported yet "
@@ -199,6 +199,12 @@ def pyramid_sgm_match(left, right, cfg: MatcherConfig,
         if p.backmatch:
             valid = _backmatch_check_true(valid, bm, p.backmatch_dist, K,
                                           plain=plain)
+        if p.speckle and p.speckle_max_region > 0:
+            valid = speckle_filter(disp, valid,
+                                   max_size=p.speckle_max_region,
+                                   max_diff=p.speckle_max_diff,
+                                   downsample=cfg.speckle_downsample,
+                                   plain=plain)
         if p.median:
             disp = median3x3_masked(disp, valid)
         if p.level != 0:

@@ -22,9 +22,11 @@ three; its ``plain=True`` runs the twins on any device (the reference
 run of ``chip_smoke.py``).
 
 Semantics equal ``census_sgm_wta_t`` bit for bit (tests hold them to it)
-for census windows up to 15x15: with more than 254 census bits the TPU's
-forward sweep uses the unclamped hamming distance while every other
-direction, here and there, reads the 254-clamped cost.
+for every census window the config allows. C holds min(ham, 254); with
+more than 254 census bits (17x17) the TPU's forward-horizontal sweep
+recurs on the unclamped distance, so ``census_cost`` then also returns an
+int16 unclamped plane and the (0, 1) path reads it. At 9x9 nothing extra
+is allocated or launched.
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ from i3dr_stereo_tpu_torch.ops.sgm import DIRECTIONS_4, DIRECTIONS_8
 BIG = 1.0e9
 CLAMP = 10000.0          # per-direction partial-sum clamp
 U8_SENTINEL = 255
+U8_CLAMP = 254           # C holds min(hamming, 254)
 NODATA = -1.0e9          # invalid-pixel marker of the WTA output
 WARP_D = 32              # the warp kernels put one disparity on each lane
 
@@ -76,32 +79,47 @@ def _check_words(cl, cr):
                          f"{tuple(cr.shape)} {cr.dtype}")
 
 
+def _needs_wide(NW: int) -> bool:
+    """Whether NW census words can hold a distance above the clamp."""
+    return NW * 32 > U8_CLAMP
+
+
 def census_cost_plain(cl: torch.Tensor, cr: torch.Tensor, D: int, *,
-                      bpm: int, H_real: int, W_real: int) -> torch.Tensor:
+                      bpm: int, H_real: int, W_real: int):
     """Plain torch twin of the ``census_cost`` kernel."""
     _check_words(cl, cr)
     B, H, W, NW = cl.shape
     xs = torch.arange(W, device=cl.device)
     C = torch.empty((B, H, W, D), dtype=torch.uint8, device=cl.device)
+    Cw = (torch.empty((B, H, W, D), dtype=torch.int16, device=cl.device)
+          if _needs_wide(NW) else None)
     for d in range(D):
         src = xs - bpm - d
         ok = (src >= 0) & (src < W_real)
         x = cl ^ cr[:, :, src.clamp(0, W - 1), :]
         ham = _popcount32(x.to(torch.int64) & 0xFFFFFFFF).sum(-1)
-        C[..., d] = torch.where(ok, ham.clamp(max=254), U8_SENTINEL).to(torch.uint8)
-    C[:, H_real:] = 0
-    C[:, :, W_real:] = 0
-    return C
+        C[..., d] = torch.where(ok, ham.clamp(max=U8_CLAMP),
+                                U8_SENTINEL).to(torch.uint8)
+        if Cw is not None:
+            Cw[..., d] = torch.where(ok, ham, -1).to(torch.int16)
+    for plane in (C, Cw):
+        if plane is not None:
+            plane[:, H_real:] = 0
+            plane[:, :, W_real:] = 0
+    return C, Cw
 
 
 def census_cost(cl: torch.Tensor, cr: torch.Tensor, D: int, *, bpm: int,
-                H_real: int, W_real: int) -> torch.Tensor:
-    """uint8 (B, H, W, D) cost volume over the residual window.
+                H_real: int, W_real: int):
+    """(C, Cw): the uint8 (B, H, W, D) cost volume over the residual
+    window and, only when the words hold more than 254 bits, its int16
+    unclamped twin (else None).
 
     C[b, y, x, d] = min(hamming(cl[b,y,x], cr[b,y,x-bpm-d]), 254); 255
     where the source column is outside [0, W_real); 0 on pad rows
     (y >= H_real) and pad columns (x >= W_real), which makes a path cross
-    the padding with a zero carry."""
+    the padding with a zero carry. Cw holds the unclamped distance, -1
+    for an invalid source column and 0 on the padding."""
     if cl.device.type == "cpu":
         return census_cost_plain(cl, cr, D, bpm=bpm, H_real=H_real,
                                  W_real=W_real)
@@ -109,19 +127,24 @@ def census_cost(cl: torch.Tensor, cr: torch.Tensor, D: int, *, bpm: int,
     _build.require_cuda(cl, cr)
     B, H, W, NW = cl.shape
     C = torch.empty((B, H, W, D), dtype=torch.uint8, device=cl.device)
+    Cw = (torch.empty((B, H, W, D), dtype=torch.int16, device=cl.device)
+          if _needs_wide(NW) else None)
     _build.launch("i3dr_census_cost", "census_cost", cl.device,
-                  cl.data_ptr(), cr.data_ptr(), C.data_ptr(), B, H, W, NW, D,
+                  cl.data_ptr(), cr.data_ptr(), C.data_ptr(),
+                  None if Cw is None else Cw.data_ptr(), B, H, W, NW, D,
                   int(bpm), int(H_real), int(W_real), _build.stream_of(cl))
-    return C
+    return C, Cw
 
 
 # ---------------------------------------------------------------------------
 # sgm_path
 # ---------------------------------------------------------------------------
 
-def _check_cost(C):
-    if C.ndim != 4 or C.dtype != torch.uint8:
-        raise ValueError(f"C must be uint8 (B, H, W, D), got "
+def _check_cost(C, wide_ok=False):
+    if C.ndim != 4 or not (C.dtype == torch.uint8
+                           or wide_ok and C.dtype == torch.int16):
+        raise ValueError(f"C must be uint8 (B, H, W, D)"
+                         f"{' or int16' if wide_ok else ''}, got "
                          f"{tuple(C.shape)} {C.dtype}")
 
 
@@ -142,10 +165,11 @@ def sgm_path_plain(C: torch.Tensor, dy: int, dx: int, p1,
     the scan axis, vectorised across the perpendicular extent. Diagonal
     paths shift the carry one column per row with a zero entering
     column (the TPU's ``_shift_carry``)."""
-    _check_cost(C)
+    _check_cost(C, wide_ok=True)
     B, H, W, D = C.shape
     p1, p2 = _f32(p1, C.device), _f32(p2, C.device)
-    c = torch.where(C == U8_SENTINEL, BIG, C.to(torch.float32))
+    bad = C == U8_SENTINEL if C.dtype == torch.uint8 else C < 0
+    c = torch.where(bad, BIG, C.to(torch.float32))
     out = torch.empty(C.shape, dtype=torch.float32, device=C.device)
     if dy == 0:
         prev = torch.zeros((B, H, D), dtype=torch.float32, device=C.device)
@@ -166,19 +190,21 @@ def sgm_path_plain(C: torch.Tensor, dy: int, dx: int, p1,
 
 def sgm_path(C: torch.Tensor, dy: int, dx: int, p1, p2) -> torch.Tensor:
     """Path costs of direction (dy, dx) (the path comes from (y-dy,
-    x-dx)): float32 (B, H, W, D) ``min(L, 10000)``. P1/P2 are runtime
-    scalars. A CPU tensor takes the plain version; a CUDA tensor launches
-    the kernel (or raises)."""
+    x-dx)): float32 (B, H, W, D) ``min(L, 10000)``. ``C`` is the uint8
+    volume (255 = invalid) or census_cost's int16 unclamped plane
+    (negative = invalid). P1/P2 are runtime scalars. A CPU tensor takes
+    the plain version; a CUDA tensor launches the kernel (or raises)."""
     if C.device.type == "cpu":
         return sgm_path_plain(C, dy, dx, p1, p2)
-    _check_cost(C)
+    _check_cost(C, wide_ok=True)
     _build.require_cuda(C)
     B, H, W, D = C.shape
     _require_warp_d(D)
     out = torch.empty(C.shape, dtype=torch.float32, device=C.device)
     _build.launch("i3dr_sgm_path", "sgm_path", C.device,
-                  C.data_ptr(), out.data_ptr(), B, H, W, int(dy), int(dx),
-                  float(p1), float(p2), _build.stream_of(C))
+                  C.data_ptr(), int(C.dtype == torch.int16), out.data_ptr(),
+                  B, H, W, int(dy), int(dx), float(p1), float(p2),
+                  _build.stream_of(C))
     return out
 
 
@@ -282,11 +308,13 @@ def census_sgm_wta(cl: torch.Tensor, cr: torch.Tensor, D: int, *, bpm: int,
     cost, path, wta = ((census_cost_plain, sgm_path_plain, sum_wta_plain)
                        if plain else (census_cost, sgm_path, sum_wta))
 
-    C = cost(cl, cr, D, bpm=bpm, H_real=H_real, W_real=W_real)
+    C, Cw = cost(cl, cr, D, bpm=bpm, H_real=H_real, W_real=W_real)
     down = [d for d in _DOWN if d in dirs]
     up = [d for d in _UP if d in dirs]
     order = [(0, 1), (0, -1)] + down + up
-    parts = [path(C, dy, dx, *pen[(dy, dx)]) for dy, dx in order]
+    # the forward sweep recurs on the unclamped distance where one exists
+    parts = [path(Cw if (dy, dx) == (0, 1) and Cw is not None else C,
+                  dy, dx, *pen[(dy, dx)]) for dy, dx in order]
     disp = wta(C, parts, len(down), len(up), subpixel=subpixel,
                uniqueness_ratio=uniqueness_ratio)
     return disp, C

@@ -1,18 +1,17 @@
-"""The stereo pipeline: match -> depth-range clamp -> depth, cloud, crop
-(torch port of ``i3dr_stereo_tpu.pipeline.stereo_pipeline``).
+"""The stereo pipeline: rectify -> match -> depth-range clamp -> depth,
+cloud, crop (torch port of ``i3dr_stereo_tpu.pipeline.stereo_pipeline``).
 
+The rectification maps depend only on the calibration, so they are built
+once per rig (:meth:`StereoPipeline.set_rig` rebuilds them) on the
+pipeline's device, and every frame is one ``remap`` launch per image.
 PyTorch runs eagerly, so the reference's jit cache and device-cached
 scalars have no counterpart: every call runs the current config, and its
-numeric fields (P1/P2, uniqueness, backmatch distance) plus the depth
-bounds reach the kernels as runtime scalars — changing them through
-:meth:`StereoPipeline.update_config` or ``update_cloud`` rebuilds nothing.
-The device is explicit: a CPU pipeline runs the plain torch twins of the
-kernels, a CUDA pipeline runs the kernels and never falls back.
-
-Rectification (the remap kernel G) is not ported yet:
-``rectify_inputs=True`` raises ``NotImplementedError``, so inputs must
-already be rectified (as the CLI ``replay``/``live`` commands and the
-demo pipeline run the JAX pipeline).
+numeric fields (P1/P2, uniqueness, backmatch distance, speckle range)
+plus the depth bounds reach the kernels as runtime scalars — changing
+them through :meth:`StereoPipeline.update_config` or ``update_cloud``
+rebuilds nothing. The device is explicit: a CPU pipeline runs the plain
+torch twins of the kernels, a CUDA pipeline runs the kernels and never
+falls back.
 """
 
 from __future__ import annotations
@@ -33,6 +32,7 @@ from i3dr_stereo_tpu_torch.ops.depth import (
     disparity_to_depth,
     disparity_to_pointcloud,
 )
+from i3dr_stereo_tpu_torch.ops.rectify import make_rectify_map, remap
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,19 +71,24 @@ class StereoPipeline:
     config: MatcherConfig
     cloud: PointCloudConfig = dataclasses.field(default_factory=PointCloudConfig)
     device: torch.device | str = "cpu"
+    interpolation: str = "cubic"
     compute_depth: bool = True
     compute_points: bool = True
     compute_crop: bool = False
-    rectify_inputs: bool = False
+    rectify_inputs: bool = True
 
     def __post_init__(self):
         self.config = self.config.sanitize()
         self.device = _resolve_device(self.device)
         if self.rectify_inputs:
-            raise NotImplementedError(
-                "rectification (remap kernel G) is not ported yet "
-                "(ROADMAP.md Queue 2 G); pass rectified images with "
-                "rectify_inputs=False")
+            self._lmap = make_rectify_map(self.rig.left,
+                                          interpolation=self.interpolation,
+                                          device=self.device)
+            self._rmap = make_rectify_map(self.rig.right,
+                                          interpolation=self.interpolation,
+                                          device=self.device)
+        else:
+            self._lmap = self._rmap = None
         self._Q = torch.as_tensor(self.rig.Q, dtype=torch.float32,
                                   device=self.device)
 
@@ -94,16 +99,34 @@ class StereoPipeline:
     def update_cloud(self, **kw) -> None:
         self.cloud = dataclasses.replace(self.cloud, **kw)
 
+    def set_rig(self, rig: StereoRig) -> None:
+        """Switch calibration: rebuilds the rectification maps and Q."""
+        self.rig = rig
+        self.__post_init__()
+
     # -- the step --------------------------------------------------------------
     def _scalar(self, v) -> torch.Tensor:
         return torch.tensor(v, dtype=torch.float32, device=self.device)
 
+    def _rectified(self, image, rmap) -> torch.Tensor:
+        x = torch.as_tensor(image, device=self.device)
+        if rmap is None:
+            return to_mono_f32(x)
+        # mono uint8 goes into the remap as uint8 (1 byte per source
+        # pixel, identical values); colour or float input takes the luma
+        # conversion first
+        if not (x.dtype == torch.uint8
+                and not (x.ndim == 3 and x.shape[-1] == 3)):
+            x = to_mono_f32(x)
+        return remap(x, rmap)
+
     def process(self, left, right) -> PipelineResult:
-        """(H, W) or (B, H, W) rectified images (mono or BGR, uint8 or
-        float) -> PipelineResult on the pipeline's device."""
+        """(H, W) or (B, H, W) images (mono or BGR, uint8 or float; raw
+        when ``rectify_inputs``, else already rectified) ->
+        PipelineResult on the pipeline's device."""
         cfg = self.config
-        l = to_mono_f32(torch.as_tensor(left, device=self.device))
-        r = to_mono_f32(torch.as_tensor(right, device=self.device))
+        l = self._rectified(left, self._lmap)
+        r = self._rectified(right, self._rmap)
         res: MatchResult = MATCHER_REGISTRY[cfg.algorithm](l, r, cfg)
         disp, valid = res.disparity, res.valid
 

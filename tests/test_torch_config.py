@@ -166,6 +166,22 @@ def test_kernel_wrappers_reject_non_cuda_accelerator_tensors():
         block_shift_gather(src, idx, q, 4)
 
 
+@pytest.mark.parametrize("op", ["remap", "speckle_keep"])
+def test_new_kernel_wrappers_reject_non_cuda_accelerator_tensors(op):
+    from i3dr_stereo_tpu_torch.ops import rectify, speckle
+
+    if op == "remap":
+        m = rectify.make_rectify_map(camera.CameraModel.ideal(16, 8, 10.0),
+                                     device="meta")
+        with pytest.raises(ValueError, match="CUDA"):
+            rectify.remap(torch.zeros((8, 16), device="meta"), m)
+    else:
+        d = torch.zeros((1, 8, 16), device="meta")
+        v = torch.zeros((1, 8, 16), dtype=torch.bool, device="meta")
+        with pytest.raises(ValueError, match="CUDA"):
+            speckle.speckle_keep(d, v, 10, 1.0)
+
+
 def test_unported_features_raise():
     from i3dr_stereo_tpu_torch.matchers.registry import MATCHER_REGISTRY
     from i3dr_stereo_tpu_torch.pipeline.stereo_pipeline import StereoPipeline
@@ -173,12 +189,16 @@ def test_unported_features_raise():
     rig = camera.StereoRig.synthetic(64, 48)
     base = params.ALGORITHM_DEFAULTS[params.Algorithm.I3DRSGM]
     img = np.zeros((48, 64), np.float32)
-    with pytest.raises(NotImplementedError, match="remap"):
-        StereoPipeline(rig, base.replace(speckle_size=0), rectify_inputs=True)
-    pipe = StereoPipeline(rig, base)  # speckle_size=100 by default
-    with pytest.raises(NotImplementedError, match="speckle"):
+    # rectification and speckle (size 100 by default) are ported
+    pipe = StereoPipeline(rig, base)
+    assert pipe.rectify_inputs and pipe.config.speckle_size == 100
+    pipe.update_config(occlusion_detection=True)
+    with pytest.raises(NotImplementedError, match="occlusion"):
         pipe.process(img, img)
-    pipe.update_config(speckle_size=0, pyramid=False)
+    pipe.update_config(occlusion_detection=False, interpolate_missing=True)
+    with pytest.raises(NotImplementedError, match="hole filling"):
+        pipe.process(img, img)
+    pipe.update_config(interpolate_missing=False, pyramid=False)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pipe.process(img, img)
     for alg, fn in MATCHER_REGISTRY.items():

@@ -65,7 +65,7 @@ def _port_pipeline():
     return StereoPipeline(rig_from_reference(_rig()),
                           config_from_reference(_cfg()),
                           params.PointCloudConfig(**CLOUD), device="cpu",
-                          compute_crop=True)
+                          compute_crop=True, rectify_inputs=False)
 
 
 @pytest.fixture(scope="module")

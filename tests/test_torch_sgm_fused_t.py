@@ -74,6 +74,32 @@ def test_census_sgm_wta_matches_interpret(bpm, directions, ur, B):
     np.testing.assert_allclose(d.numpy()[v], d_ref[v], rtol=0, atol=1e-4)
 
 
+def test_census_17x17_forward_sweep_reads_unclamped_hamming():
+    """A 17x17 census has 288 bits, so a hamming distance can pass the
+    uint8 clamp of 254. The TPU's forward-horizontal sweep recurs on the
+    unclamped distance while every other direction, and C itself, read
+    min(ham, 254); the port must do the same. A tie-free image against
+    its negation drives the distances up to 288."""
+    n = 128
+    rng = np.random.default_rng(17)
+    L = rng.permutation(n * n).reshape(1, n, n).astype(np.float32)
+    R = -L
+    (cl_t, cr_t) = [jnp.moveaxis(ref_census(jnp.transpose(jnp.asarray(x),
+                                                          (0, 2, 1)), 17, 17),
+                                 -1, 0) for x in (L, R)]
+    cl, cr = [census_transform(torch.from_numpy(x), 17, 17) for x in (L, R)]
+    assert cl.shape[-1] == 9
+    pens = ((0.1, 0.8),) * 4
+    kw = dict(bpm=0, W_real=n, H_real=n, pens=pens, directions=4,
+              subpixel=True)
+    d_ref, C_ref = census_sgm_wta_t(cl_t, cr_t, D, interpret=True, **kw)
+    d, C = sf.census_sgm_wta(cl, cr, D, **kw)
+    np.testing.assert_array_equal(C.numpy(),
+                                  np.asarray(C_ref).transpose(0, 3, 1, 2))
+    assert (C.numpy() == 254).mean() > 0.02      # the clamp is in play
+    np.testing.assert_array_equal(d.numpy(), np.asarray(d_ref))
+
+
 def test_right_disparity_from_C_matches_reference():
     rng = np.random.default_rng(21)
     B, Hp, Wp, Dd, W_real, bpm = 2, 8, 40, 16, 35, -6
