@@ -43,7 +43,25 @@ final result line) on the first thing that is wrong:
    card's name and power limit;
 6. profiles five back-to-back frames of the full path: device busy
    time, idle share and the device time of the largest kernels, all
-   from that one window.
+   from that one window;
+7. runs the volume SGM kernels (``sgm_volume``, one path direction per
+   launch, and ``sgm_volume_sum``) against their plain twins, bit-equal
+   per direction, per sum and for the whole aggregation, at
+   1x1024x1280x128 float32 with 8 paths (P1/P2 200/400, each timed),
+   1x1024x1280x64 census-scale float32 with 4 paths (0.1/0.8), uint8
+   with sentinels into the int16 mode at 256x320x64, and a ragged
+   B = 2 131x45x130 volume with per-direction penalties;
+8. drives the SGBM frame: raw uint8 images of ``accuracy_bench.py``'s
+   1280x1024 scene through ``StereoPipeline(device="cuda")`` with
+   rectification and its SGBM config (D = 128, window 5, 8 paths,
+   P1/P2 200/400, uniqueness 10, disp12MaxDiff 1, speckle off,
+   subpixel): both volume kernels must launch during one frame, the
+   median error must be below 0.25 px at density > 0.5, and the matcher
+   through the plain twins must agree at 256x320; then runs the SGBM
+   defaults (speckle 100 / 4.0 at full resolution), the BM defaults and
+   dense I3DRSGM at D = 64 once each at 1280x1024 (finite, density
+   reported); times the SGBM frame and matcher (CUDA events, median of
+   10), reports peak memory, and profiles five SGBM frames as in 6.
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -83,13 +101,24 @@ SOURCES = {
               "i3dr_stereo_tpu/ops/rectify_pallas.py:279"),
     "speckle_ccl": ("i3dr_stereo_tpu_torch/csrc/speckle_ccl.cu",
                     "i3dr_stereo_tpu/ops/speckle_pallas.py:304,340"),
+    "sgm_volume": ("i3dr_stereo_tpu_torch/csrc/sgm_volume.cu",
+                   "i3dr_stereo_tpu/ops/sgm_pallas.py:173,229"),
+    "sgm_volume_sum": ("i3dr_stereo_tpu_torch/csrc/sgm_volume.cu",
+                       "i3dr_stereo_tpu/ops/sgm_pallas.py:173,229"),
 }
-
+# the kernels of each main path: the flagship frame, the SGBM frame
+FLAGSHIP_KERNELS = ("census_cost", "sgm_path", "sum_wta", "row_gather",
+                    "remap", "speckle_ccl")
+SGBM_KERNELS = ("remap", "sgm_volume", "sgm_volume_sum")
 
 # substrings of the port's CUDA kernel names, for the profile table
 KERNEL_SYMBOLS = ("census_cost_kernel", "sgm_path_kernel", "sum_wta_kernel",
                   "row_gather_kernel", "remap_kernel", "ccl_local",
-                  "ccl_boundary", "ccl_count", "ccl_keep")
+                  "ccl_boundary", "ccl_count", "ccl_keep",
+                  "sgm_volume_kernel", "sgm_volume_sum_kernel")
+# accuracy_bench.py:sgbm_1280's scene and size
+H_SGBM, W_SGBM = 1024, 1280
+SGBM_SCENE = dict(max_disp=120, background_disp=8, layers=5, seed=21)
 
 
 def fail(msg: str) -> None:
@@ -509,9 +538,10 @@ def phase_main_path(stats, card):
     torch.cuda.synchronize()
     launches = dict(_build.LAUNCHES)
     print(f"main path launches at {W_FULL}x{H_FULL}: {launches}", flush=True)
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} did not launch on the main path")
-        stats[name]["launches"] = n
+    for name in FLAGSHIP_KERNELS:
+        check(launches[name] > 0, f"kernel {name} did not launch on the "
+              f"main path")
+        stats[name]["launches"] = launches[name]
 
     d = res.disparity.cpu().numpy()
     v = res.valid.cpu().numpy()
@@ -592,7 +622,8 @@ def phase_main_path(stats, card):
 # phase 6: where the frame's time goes
 # ---------------------------------------------------------------------------
 
-def phase_profile(pipe, left, right, card, frames: int = 5):
+def phase_profile(pipe, left, right, card, label="flagship",
+                  frames: int = 5):
     """Device busy time and idle share over one window of ``frames``
     back-to-back frames, both from the same window: busy is the union of
     the device activity spans the profiler records (device activity only,
@@ -625,7 +656,8 @@ def phase_profile(pipe, left, right, card, frames: int = 5):
                if any(k in n for k in KERNEL_SYMBOLS)) / 1e3
     htod = sum(n for name, (n, _) in per_name.items()
                if name.startswith("Memcpy HtoD"))
-    print(f"profile [{card}]: {frames} frames, wall {wall / frames:.3f} "
+    print(f"profile {label} [{card}]: {frames} frames, wall "
+          f"{wall / frames:.3f} "
           f"ms/frame (profiler on), device busy {busy / frames:.3f} ms/frame "
           f"({len(spans) / frames:.0f} device activities per frame, "
           f"{htod / frames:.0f} of them host-to-device copies), idle "
@@ -640,6 +672,241 @@ def phase_profile(pipe, left, right, card, frames: int = 5):
         if any(k in name for k in KERNEL_SYMBOLS):
             print(f"  {t / 1e3 / frames:8.3f} ms/frame {n // frames:5d}x  "
                   f"{name[:90]}", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the volume SGM kernels against their plain twins
+# ---------------------------------------------------------------------------
+
+def timed(fn):
+    """(fn(), device ms of that one call) (CUDA events)."""
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    torch.cuda.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def compare_volume(sgm, C, p1, p2, dirs, label, stats, pens=None,
+                   out_dtype=None, time_it=False):
+    """sgm_volume per direction and sgm_volume_sum vs their twins, and the
+    whole sgm_aggregate vs sgm_aggregate_plain: all bit-equal."""
+    Cb, groups, int16_mode, (H, W, D) = sgm.plan(C, p1, p2, dirs, pens,
+                                                 out_dtype)
+    sizes = [len(ds) for _, ds in groups]
+    parts, plain_parts, per_dir, per_dir_plain = [], [], [], []
+    for (pp1, pp2), ds in groups:
+        for dy, dx in ds:
+            k = sgm.sgm_volume_path(Cb, dy, dx, pp1, pp2)
+            p, ms_plain = timed(
+                lambda: sgm.sgm_volume_path_plain(Cb, dy, dx, pp1, pp2))
+            err = (k - p).abs().max().item()
+            stats["sgm_volume"]["err"] = max(stats["sgm_volume"]["err"], err)
+            check(torch.equal(k, p), f"{label}: sgm_volume {(dy, dx)} "
+                  f"differs from its twin (max {err})")
+            parts.append(k)
+            plain_parts.append(p)
+            if time_it:
+                per_dir.append(gpu_ms(
+                    lambda: sgm.sgm_volume_path(Cb, dy, dx, pp1, pp2)))
+                per_dir_plain.append(ms_plain)
+    S = sgm.sgm_volume_sum(parts, sizes, int16_mode)
+    S_plain, sum_plain_ms = timed(
+        lambda: sgm.sgm_volume_sum_plain(plain_parts, sizes, int16_mode))
+    err = (S.double() - S_plain.double()).abs().max().item()
+    stats["sgm_volume_sum"]["err"] = max(stats["sgm_volume_sum"]["err"], err)
+    check(torch.equal(S, S_plain), f"{label}: sgm_volume_sum differs from "
+          f"its twin (max {err})")
+    whole = sgm.sgm_aggregate(C, p1, p2, dirs, pens, out_dtype=out_dtype)
+    ref = S_plain[:, :H, :W, :D]
+    check(torch.equal(whole, ref if C.ndim == 4 else ref[0]),
+          f"{label}: sgm_aggregate differs from sgm_aggregate_plain")
+    big = (ref >= (9999 if int16_mode else 5e8)).float().mean().item()
+    print(f"{label}: {len(parts)} sgm_volume directions in groups {sizes}, "
+          f"sgm_volume_sum and sgm_aggregate bit-equal to their twins "
+          f"({str(S.dtype)[6:]} S, {big:.4f} of it invalid-level)",
+          flush=True)
+    if time_it:
+        sum_ms = gpu_ms(lambda: sgm.sgm_volume_sum(parts, sizes, int16_mode))
+        whole_ms = gpu_ms(lambda: sgm.sgm_aggregate(C, p1, p2, dirs, pens,
+                                                    out_dtype=out_dtype))
+        stats["sgm_volume"]["ms"] = sum(per_dir) / len(per_dir)
+        stats["sgm_volume"]["plain_ms"] = sum(per_dir_plain) / len(per_dir)
+        stats["sgm_volume_sum"]["ms"] = sum_ms
+        stats["sgm_volume_sum"]["plain_ms"] = sum_plain_ms
+        print("sgm_volume ms per direction " + ", ".join(
+            f"{o}: {a:.3f} (plain {b:.1f})" for o, a, b in zip(
+                [d for _, ds in groups for d in ds], per_dir,
+                per_dir_plain)), flush=True)
+        print(f"sgm_volume_sum {sum_ms:.3f} ms (plain {sum_plain_ms:.1f}); "
+              f"whole sgm_aggregate {whole_ms:.3f} ms", flush=True)
+
+
+def phase_volume(stats):
+    from i3dr_stereo_tpu_torch.ops import sgm
+
+    rng = np.random.default_rng(7)
+    dev = torch.device(DEVICE)
+
+    def volume(shape, kind, invalid_cols=0):
+        if kind == "u8":
+            c = rng.integers(0, 81, shape, dtype=np.uint8)
+            bad = 255
+        else:
+            c = (rng.uniform(0, 60, shape) if kind == "float"
+                 else rng.integers(0, 81, shape)).astype(np.float32)
+            bad = 1.0e9
+        c[rng.random(shape) < 0.03] = bad
+        for x in range(invalid_cols):      # min_disparity-style columns
+            c[..., x, x:] = bad
+        return torch.tensor(c, device=dev)
+
+    # the SGBM configuration's volume: 1024x1280, D = 128, 8 paths
+    compare_volume(sgm, volume((1, H_SGBM, W_SGBM, 128), "float", 16),
+                   200.0, 400.0, sgm.DIRECTIONS_8,
+                   f"sgm_volume {W_SGBM}x{H_SGBM}x128 f32 8 paths",
+                   stats, time_it=True)
+    # census-scale costs (integer hamming, D = 64 padded to 128), 4 paths
+    compare_volume(sgm, volume((1, H_SGBM, W_SGBM, 64), "int", 16), 0.1,
+                   0.8, sgm.DIRECTIONS_4,
+                   f"sgm_volume {W_SGBM}x{H_SGBM}x64 census-scale 4 paths",
+                   stats)
+    # uint8 with the 255 sentinel into the int16 mode
+    compare_volume(sgm, volume((1, 256, 320, 64), "u8", 8), 7.0, 86.0,
+                   sgm.DIRECTIONS_8, "sgm_volume 320x256x64 uint8 int16 mode",
+                   stats, out_dtype=torch.int16)
+    # ragged, batched, per-direction penalties: two groups in each
+    # vertical family
+    pens = [(1.5, 9.0), (2.0, 11.0), (1.5, 9.0), (2.0, 11.0), (0.75, 30.0),
+            (2.0, 11.0), (1.5, 9.0), (0.5, 4.0)]
+    compare_volume(sgm, volume((2, 131, 45, 130), "float", 5), 0.0, 0.0,
+                   sgm.DIRECTIONS_8,
+                   "sgm_volume ragged 2x45x131x130 per-direction penalties",
+                   stats, pens=pens)
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the SGBM frame at full width
+# ---------------------------------------------------------------------------
+
+def sgbm_cfg(params):
+    """``accuracy_bench.py:sgbm_1280``'s config."""
+    return params.ALGORITHM_DEFAULTS[params.Algorithm.SGBM].replace(
+        disparity_range=128, window_size=5, p1=200.0, p2=400.0,
+        uniqueness_ratio=10.0, disp12_max_diff=1.0, speckle_size=0,
+        num_directions=8, subpixel=True)
+
+
+def phase_sgbm(stats, card):
+    from i3dr_stereo_tpu_torch import _build
+    from i3dr_stereo_tpu_torch.config import params
+    from i3dr_stereo_tpu_torch.core import camera
+    from i3dr_stereo_tpu_torch.io.synthetic import layered_scene
+    from i3dr_stereo_tpu_torch.matchers import registry
+    from i3dr_stereo_tpu_torch.ops import sgm
+    from i3dr_stereo_tpu_torch.pipeline.stereo_pipeline import StereoPipeline
+
+    cfg = sgbm_cfg(params)
+    sc = layered_scene(H_SGBM, W_SGBM, **SGBM_SCENE)
+    rig = camera.StereoRig.synthetic(W_SGBM, H_SGBM, fx=580.0,
+                                     baseline_m=0.3)
+    cloud = params.PointCloudConfig(depth_max=100.0, depth_min=0.5)
+    pipe = StereoPipeline(rig, cfg, cloud, device=DEVICE)
+    check(pipe.rectify_inputs, "the SGBM frame must rectify")
+    left = torch.tensor(raw_u8(sc.left), device=DEVICE)
+    right = torch.tensor(raw_u8(sc.right), device=DEVICE)
+
+    pipe.process(left, right)  # warm-up
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    res = pipe.process(left, right)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    print(f"SGBM frame launches at {W_SGBM}x{H_SGBM}: {launches}",
+          flush=True)
+    for name in SGBM_KERNELS:
+        check(launches[name] > 0, f"kernel {name} did not launch on the "
+              f"SGBM frame")
+    for name in ("sgm_volume", "sgm_volume_sum"):
+        stats[name]["launches"] = launches[name]
+
+    d = res.disparity.cpu().numpy()
+    v = res.valid.cpu().numpy()
+    check(d.shape == (H_SGBM, W_SGBM), f"disparity shape {d.shape}")
+    check(bool(np.isfinite(d[v]).all()), "non-finite valid disparities")
+    both = v & sc.valid
+    density = float(v.mean())
+    med = float(np.median(np.abs(d - sc.disparity)[both]))
+    print(f"SGBM frame accuracy: density {density:.4f}, GT-valid coverage "
+          f"{both.sum() / sc.valid.sum():.4f}, median |d - GT| {med:.4f} px",
+          flush=True)
+    check(density > 0.5, f"SGBM density {density} too low")
+    check(med < MAX_MEDIAN_ERR, f"SGBM median error {med} >= "
+          f"{MAX_MEDIAN_ERR}")
+
+    # the same matcher through the plain twins on the card, small scene
+    small = layered_scene(256, 320, max_disp=40, seed=2)
+    ls = torch.tensor(small.left, device=DEVICE)
+    rs = torch.tensor(small.right, device=DEVICE)
+    scfg = cfg.replace(disparity_range=64)
+    mk = registry.sgbm_match(ls, rs, scfg)
+    registry.sgm_aggregate = sgm.sgm_aggregate_plain
+    try:
+        mp = registry.sgbm_match(ls, rs, scfg)
+    finally:
+        registry.sgm_aggregate = sgm.sgm_aggregate
+    agree = (mk.valid == mp.valid).float().mean().item()
+    vb = mk.valid & mp.valid
+    dd = (mk.disparity - mp.disparity)[vb].abs().max().item()
+    print(f"SGBM 256x320 kernels vs twins: valid agreement {agree:.6f}, max "
+          f"|dd| {dd}", flush=True)
+    check(agree >= MIN_VALID_AGREE, f"SGBM valid agreement {agree}")
+    check(dd <= TOL_PATH_DISP, f"SGBM |dd| {dd} > {TOL_PATH_DISP}")
+
+    # the other dense matchers, once each at full size
+    others = (
+        ("SGBM defaults (speckle 100 / 4.0)",
+         params.ALGORITHM_DEFAULTS[params.Algorithm.SGBM], "speckle_ccl"),
+        ("BM defaults", params.ALGORITHM_DEFAULTS[params.Algorithm.BM],
+         None),
+        ("dense I3DRSGM D=64",
+         params.ALGORITHM_DEFAULTS[params.Algorithm.I3DRSGM].replace(
+             pyramid=False, disparity_range=64), "sgm_volume"),
+    )
+    for label, ocfg, kernel in others:
+        _build.reset_launches()
+        out = StereoPipeline(rig, ocfg, cloud, device=DEVICE).process(
+            left, right)
+        torch.cuda.synchronize()
+        if kernel:
+            check(_build.LAUNCHES[kernel] > 0, f"{label}: {kernel} did not "
+                  f"launch")
+        ov = out.valid
+        check(bool(torch.isfinite(out.disparity[ov]).all())
+              and bool(torch.isfinite(out.depth).all()),
+              f"{label}: non-finite outputs")
+        om = (ov.cpu().numpy() & sc.valid)
+        oerr = float(np.median(np.abs(out.disparity.cpu().numpy()
+                                      - sc.disparity)[om]))
+        print(f"{label} at {W_SGBM}x{H_SGBM}: finite, density "
+              f"{ov.float().mean().item():.4f}, median |d - GT| {oerr:.4f} "
+              f"px", flush=True)
+
+    # timing
+    torch.cuda.reset_peak_memory_stats()
+    frame_ms = gpu_ms(lambda: pipe.process(left, right), iters=10, warmup=1)
+    rl, rr = res.rect_left, res.rect_right
+    match_ms = gpu_ms(lambda: registry.sgbm_match(rl, rr, cfg), iters=10,
+                      warmup=1)
+    print(f"timing [{card}]: SGBM frame (raw u8 -> rectify -> SGBM "
+          f"{cfg.disparity_range}d 8 paths -> depth, cloud) {frame_ms:.3f} "
+          f"ms/frame ({1000 / frame_ms:.2f} FPS), matcher {match_ms:.3f} ms "
+          f"at {W_SGBM}x{H_SGBM}", flush=True)
+    print(f"SGBM peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    return pipe, left, right
 
 
 def main() -> int:
@@ -669,6 +936,8 @@ def main() -> int:
              for k in SOURCES}
     phase_kernels(stats)
     phase_profile(*phase_main_path(stats, card), card)
+    phase_volume(stats)
+    phase_profile(*phase_sgbm(stats, card), card, label="SGBM")
 
     kernels = [{"name": k, "route": "cuda", "source": SOURCES[k][0],
                 "replaces": SOURCES[k][1], "launches": s["launches"],

@@ -36,7 +36,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # kernel name -> launches since the last reset_launches()
 LAUNCHES = {"census_cost": 0, "sgm_path": 0, "sum_wta": 0, "row_gather": 0,
-            "remap": 0, "speckle_ccl": 0}
+            "remap": 0, "speckle_ccl": 0, "sgm_volume": 0,
+            "sgm_volume_sum": 0}
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 # C entry -> argtypes (pointers and the stream as c_void_p: a bare Python
@@ -56,6 +57,11 @@ _SIGNATURES = {
     "i3dr_remap": (_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # d, valid, labels, sizes, keep, B, H, W, max_size, max_diff, stream
     "i3dr_speckle_ccl": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
+    # C, u8, out, B, H, W, D (padded), dy, dx, p1, p2, stream
+    "i3dr_sgm_volume": (_P, _I, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P),
+    # parts (host array of device pointers), n_parts, group_end (host
+    # int array), n_groups, int16_mode, out, n, stream
+    "i3dr_sgm_volume_sum": (_P, _I, _P, _I, _I, _P, _L, _P),
 }
 
 

@@ -1,10 +1,27 @@
-"""Matcher result (torch port of ``i3dr_stereo_tpu.matchers.base.MatchResult``)."""
+"""Matcher facade (torch port of ``i3dr_stereo_tpu.matchers.base``): the
+match result with the reference's encodings, and ``StereoMatcher`` /
+``create_matcher``, the AbstractStereoMatcher surface
+(include/stereoMatcher/abstractStereoMatcher.h:12-92).
+
+PyTorch runs eagerly, so the reference's per-shape cache of compiled
+executables has no counterpart: every call runs the current config.
+"""
 
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+
+from i3dr_stereo_tpu_torch.config.params import (
+    ALGORITHM_DEFAULTS,
+    Algorithm,
+    MatcherConfig,
+)
+from i3dr_stereo_tpu_torch.core.frame import to_mono_f32
+
+NODATA = -10000.0    # I3DRSGM nodata convention (I3DRSGM.cpp:142-145)
+MISSING_Z = 10000.0  # generate_disparity.cpp MISSING_Z
 
 
 @dataclasses.dataclass(frozen=True)
@@ -13,3 +30,79 @@ class MatchResult:
 
     disparity: torch.Tensor    # (..., H, W) float32, absolute pixels
     valid: torch.Tensor        # (..., H, W) bool
+
+    # --- reference-compatible encodings -------------------------------------
+    def fixed_point(self, scale: int = 16,
+                    min_disparity: int = 0) -> torch.Tensor:
+        """x16 int16 encoding (DPP=16, generate_disparity.cpp:402-436);
+        invalid pixels get (minDisparity-1)*16 like cv::StereoBM/SGBM.
+        Rounds half to even, as the reference does."""
+        d = torch.where(self.valid, self.disparity,
+                        float(min_disparity) - 1.0)
+        return torch.round(d * scale).to(torch.int16)
+
+    def with_missing_z(self) -> torch.Tensor:
+        """float32 disparity with invalid = MISSING_Z (10000), the
+        encoding generate_disparity publishes (cpp:449-452)."""
+        return torch.where(self.valid, self.disparity, MISSING_Z)
+
+    def with_nodata(self) -> torch.Tensor:
+        """float32 disparity with invalid = -10000 (I3DRSGM convention)."""
+        return torch.where(self.valid, self.disparity, NODATA)
+
+
+class StereoMatcher:
+    """Stateful wrapper: a config and the match calls. Parameter changes
+    never rebuild an engine (cf. I3DRSGM.cpp:630-654's destroy/recreate
+    per setter)."""
+
+    def __init__(self, config: MatcherConfig):
+        self._config = config.sanitize()
+
+    @property
+    def config(self) -> MatcherConfig:
+        return self._config
+
+    def set_config(self, config: MatcherConfig) -> None:
+        self._config = config.sanitize()
+
+    def update(self, **kw) -> None:
+        """Live reconfigure (the dynamic_reconfigure path)."""
+        self._config = self._config.replace(**kw)
+
+    def match(self, left, right) -> MatchResult:
+        """(H, W) or (B, H, W) images (mono or BGR, uint8 or float) ->
+        left-anchored MatchResult on the images' device."""
+        from i3dr_stereo_tpu_torch.matchers.registry import MATCHER_REGISTRY
+
+        cfg = self._config
+        if cfg.downsample_scale != 1.0:
+            raise NotImplementedError(
+                "downsample_scale != 1 (the reference's cubic resize) is "
+                "not ported yet (ROADMAP.md Queue 1 item 16)")
+        return MATCHER_REGISTRY[cfg.algorithm](
+            to_mono_f32(torch.as_tensor(left)),
+            to_mono_f32(torch.as_tensor(right)), cfg)
+
+    # reference-compatible aliases (abstractStereoMatcher.h)
+    forward_match = match
+
+    def backward_match(self, left, right) -> MatchResult:
+        """Right-anchored disparity: match with swapped, mirrored images
+        (the createRightMatcher trick, matcherOpenCVBlock.cpp:46-51)."""
+        l = torch.as_tensor(left)
+        r = torch.as_tensor(right)
+        # mirror the width axis (a BGR image keeps its channel order; the
+        # reference flips the last axis, channels included)
+        w_axis = -2 if l.ndim == 3 and l.shape[-1] == 3 else -1
+        res = self.match(r.flip(w_axis), l.flip(w_axis))
+        return MatchResult(disparity=res.disparity.flip(-1),
+                           valid=res.valid.flip(-1))
+
+
+def create_matcher(config: MatcherConfig | Algorithm) -> StereoMatcher:
+    """Factory keyed by the reference's algorithm enum
+    (init_matcher, generate_disparity.cpp:263-331)."""
+    if isinstance(config, Algorithm):
+        config = ALGORITHM_DEFAULTS[config]
+    return StereoMatcher(config)

@@ -1,25 +1,201 @@
 """Matcher backends keyed by the reference's algorithm enum (torch port of
 ``i3dr_stereo_tpu.matchers.registry``).
 
-Only the flagship — I3DRSGM with the coarse-to-fine pyramid — is ported.
-Every other backend raises ``NotImplementedError`` naming the ROADMAP.md
-item that ports it.
+| enum | reference                          | here                                |
+|------|------------------------------------|-------------------------------------|
+| 0    | MatcherOpenCVBlock (cv::StereoBM)  | bm_match — SAD block matching       |
+| 1    | MatcherOpenCVSGBM (cv::StereoSGBM) | sgbm_match — BT + 8/5/4-path SGM    |
+| 2    | MatcherI3DRSGM (Phobos engine)     | i3drsgm_match — census pyramid SGM, |
+|      |                                    | or dense census SGM (D <= 64)       |
+| 3    | MatcherOpenCVBlockCuda             | bm_match                            |
+| 4, 5 | BP / CSBP (cv::cuda)               | not ported: ROADMAP.md Queue 1 item 12 |
+
+Every backend takes (H, W) or (B, H, W) float32 images and returns a
+MatchResult. The SGM of SGBM and dense I3DRSGM is
+:func:`~i3dr_stereo_tpu_torch.ops.sgm.sgm_aggregate` (the ``sgm_volume``
+kernels on a CUDA tensor), with the TPU's semantics: the reference's
+backend switch is gone. The hole-filling options (``interp``,
+``interpolate_missing``) need the WLS fill and raise
+``NotImplementedError`` naming ROADMAP.md Queue 1 item 10.
 """
 
 from __future__ import annotations
 
-from i3dr_stereo_tpu_torch.config.params import Algorithm, MatcherConfig
+import math
+import warnings
+
+import torch
+
+from i3dr_stereo_tpu_torch.config.params import (
+    Algorithm,
+    CostFunction,
+    MatcherConfig,
+)
 from i3dr_stereo_tpu_torch.matchers.base import MatchResult
 from i3dr_stereo_tpu_torch.matchers.pyramid import pyramid_sgm_match
+from i3dr_stereo_tpu_torch.ops.census import census_cost_volume, census_transform
+from i3dr_stereo_tpu_torch.ops.cost import (
+    box_aggregate,
+    bt_cost_volume,
+    normalized_response_prefilter,
+    sad_cost_volume,
+    texture_response,
+    xsobel_prefilter,
+)
+from i3dr_stereo_tpu_torch.ops.lr_check import lr_consistency
+from i3dr_stereo_tpu_torch.ops.median import median3x3_masked
+from i3dr_stereo_tpu_torch.ops.sgm import (
+    DIRECTIONS_4,
+    DIRECTIONS_5,
+    DIRECTIONS_8,
+    sgm_aggregate,
+)
+from i3dr_stereo_tpu_torch.ops.speckle import speckle_filter
+from i3dr_stereo_tpu_torch.ops.wta import wta_disparity
+
+
+def _reject_hole_filling(cfg: MatcherConfig) -> None:
+    if cfg.interp or cfg.interpolate_missing:
+        raise NotImplementedError(
+            "hole filling (interp / interpolate_missing: the WLS fill) is "
+            "not ported yet (ROADMAP.md Queue 1 item 10)")
+
+
+def _batched(left, right):
+    left, right = torch.as_tensor(left), torch.as_tensor(right)
+    batched = left.ndim == 3
+    l = (left if batched else left[None]).float()
+    r = (right if right.ndim == 3 else right[None]).float()
+    return l, r, batched
+
+
+def _result(disp, valid, batched: bool) -> MatchResult:
+    if not batched:
+        disp, valid = disp[0], valid[0]
+    return MatchResult(disparity=disp, valid=valid)
+
+
+def _directions(cfg: MatcherConfig):
+    return {4: DIRECTIONS_4, 5: DIRECTIONS_5, 8: DIRECTIONS_8}[
+        cfg.num_directions]
+
+
+def _cost_volume(left, right, cfg: MatcherConfig):
+    """Pixel costs by the configured cost function, pre-aggregation."""
+    if cfg.cost == CostFunction.CENSUS:
+        cl = census_transform(left, cfg.census_height, cfg.census_width)
+        cr = census_transform(right, cfg.census_height, cfg.census_width)
+        return census_cost_volume(cl, cr, cfg.min_disparity,
+                                  cfg.disparity_range)
+    lf = xsobel_prefilter(left, cfg.prefilter_cap)
+    rf = xsobel_prefilter(right, cfg.prefilter_cap)
+    volume = bt_cost_volume if cfg.cost == CostFunction.BT else sad_cost_volume
+    return volume(lf, rf, cfg.min_disparity, cfg.disparity_range)
+
+
+def _speckle(disp, valid, cfg: MatcherConfig):
+    if cfg.speckle_size <= 0:
+        return valid
+    return speckle_filter(disp, valid, max_size=cfg.speckle_size,
+                          max_diff=cfg.speckle_range,
+                          downsample=cfg.speckle_downsample)
+
+
+def _postprocess(disp, valid, S, cfg: MatcherConfig):
+    """The shared post-match chain of SGBM: LR check, speckle, median."""
+    if cfg.disp12_max_diff >= 0 and cfg.algorithm != Algorithm.BM:
+        disp, valid = lr_consistency(
+            disp, valid, S, cfg.min_disparity,
+            cfg.disp12_max_diff if cfg.disp12_max_diff > 0 else 1.0)
+    valid = _speckle(disp, valid, cfg)
+    if cfg.median_filter:
+        disp = median3x3_masked(disp, valid)
+    return disp, valid
+
+
+def bm_match(left, right, cfg: MatcherConfig) -> MatchResult:
+    """Block matching (cv::StereoBM semantics): x-Sobel or
+    normalized-response prefilter, SAD over the correlation window, WTA
+    with texture and uniqueness checks, speckle filter, subpixel."""
+    _reject_hole_filling(cfg)
+    l, r, batched = _batched(left, right)
+    if cfg.prefilter_type == "normalized_response":
+        pl = normalized_response_prefilter(l, cfg.prefilter_size,
+                                           cfg.prefilter_cap)
+        pr = normalized_response_prefilter(r, cfg.prefilter_size,
+                                           cfg.prefilter_cap)
+    else:
+        pl = xsobel_prefilter(l, cfg.prefilter_cap)
+        pr = xsobel_prefilter(r, cfg.prefilter_cap)
+    C, valid_cv = sad_cost_volume(pl, pr, cfg.min_disparity,
+                                  cfg.disparity_range)
+    S = box_aggregate(C, valid_cv, cfg.window_size)
+    disp, valid = wta_disparity(S, cfg.min_disparity,
+                                uniqueness_ratio=cfg.uniqueness_ratio,
+                                subpixel=cfg.subpixel)
+    if cfg.texture_threshold > 0:
+        tex = texture_response(pl, cfg.window_size, cfg.prefilter_cap)
+        valid = valid & (tex >= cfg.texture_threshold * cfg.window_size)
+    valid = _speckle(disp, valid, cfg)
+    return _result(disp, valid, batched)
+
+
+def sgbm_match(left, right, cfg: MatcherConfig) -> MatchResult:
+    """Semi-global block matching (cv::StereoSGBM semantics): BT costs on
+    the prefiltered pair, box sum over the window, N-path SGM, WTA with
+    uniqueness, LR check, speckle, parabolic subpixel.
+
+    This is the branch the TPU runs by default. The reference's "lean"
+    branch (pixelwise BT fused with the forward pass, TPU kernels J and
+    K, reached only under the non-default ``I3DR_SGM_BACKEND=pallas``)
+    is the next slice (ROADMAP.md Queue 2)."""
+    _reject_hole_filling(cfg)
+    l, r, batched = _batched(left, right)
+    C, valid_cv = _cost_volume(l, r, cfg)
+    C = box_aggregate(C, valid_cv, cfg.window_size)
+    S = sgm_aggregate(C, cfg.p1, cfg.p2, _directions(cfg))
+    disp, valid = wta_disparity(S, cfg.min_disparity,
+                                uniqueness_ratio=cfg.uniqueness_ratio,
+                                subpixel=cfg.subpixel)
+    disp, valid = _postprocess(disp, valid, S, cfg)
+    return _result(disp, valid, batched)
 
 
 def i3drsgm_match(left, right, cfg: MatcherConfig) -> MatchResult:
-    """Census SGM with the engine's pyramid schedule (cfg.pyramid)."""
-    if not cfg.pyramid:
-        raise NotImplementedError(
-            "dense (pyramid=False) I3DRSGM is not ported yet "
-            "(ROADMAP.md Queue 1 item 11)")
-    return pyramid_sgm_match(left, right, cfg)
+    """Census SGM with the Phobos-profile feature set: census window, 4
+    path directions, backmatching check, speckle, median 3x3. With
+    ``cfg.pyramid`` the coarse-to-fine schedule runs
+    (:mod:`~i3dr_stereo_tpu_torch.matchers.pyramid`). The dense path
+    covers at most 64 disparities, as on the TPU: a wider range warns and
+    takes the pyramid, deep enough for the range at the engine's 31
+    disparities per level (at least two levels)."""
+    if cfg.pyramid:
+        return pyramid_sgm_match(left, right, cfg)
+    if cfg.disparity_range > 64:
+        n = max(2, math.ceil(math.log2(max(cfg.disparity_range, 32)
+                                       / 31.0)) + 1)
+        warnings.warn(
+            f"disparity_range={cfg.disparity_range} exceeds the dense "
+            f"kernels' D<=64 ceiling; falling back to the pyramid "
+            f"schedule ({n} levels — the engine's route to wide "
+            f"ranges). Set pyramid=True to choose this explicitly, "
+            f"or disparity_range<=64 for the dense path.", stacklevel=2)
+        return pyramid_sgm_match(
+            left, right, cfg.replace(pyramid=True, max_pyramid_level=n))
+    _reject_hole_filling(cfg)
+    l, r, batched = _batched(left, right)
+    C, _ = _cost_volume(l, r, cfg)
+    S = sgm_aggregate(C, cfg.p1, cfg.p2, _directions(cfg))
+    disp, valid = wta_disparity(S, cfg.min_disparity,
+                                uniqueness_ratio=cfg.uniqueness_ratio,
+                                subpixel=cfg.subpixel)
+    if cfg.backmatch_distance >= 0:
+        disp, valid = lr_consistency(disp, valid, S, cfg.min_disparity,
+                                     cfg.backmatch_distance)
+    valid = _speckle(disp, valid, cfg)
+    if cfg.median_filter:
+        disp = median3x3_masked(disp, valid)
+    return _result(disp, valid, batched)
 
 
 def _not_ported(item: str):
@@ -30,10 +206,15 @@ def _not_ported(item: str):
 
 
 MATCHER_REGISTRY = {
-    Algorithm.BM: _not_ported("Queue 1 item 11"),
-    Algorithm.SGBM: _not_ported("Queue 1 item 11"),
+    Algorithm.BM: bm_match,
+    Algorithm.SGBM: sgbm_match,
     Algorithm.I3DRSGM: i3drsgm_match,
-    Algorithm.BM_GPU: _not_ported("Queue 1 item 11"),
+    Algorithm.BM_GPU: bm_match,
     Algorithm.BP_GPU: _not_ported("Queue 1 item 12"),
     Algorithm.CSBP_GPU: _not_ported("Queue 1 item 12"),
 }
+
+
+def compute_disparity(left, right, cfg: MatcherConfig) -> MatchResult:
+    """Pure functional entry: dispatch on cfg.algorithm."""
+    return MATCHER_REGISTRY[cfg.algorithm](left, right, cfg.sanitize())

@@ -3,14 +3,19 @@
 The matching cost of the flagship I3DRSGM engine (``Feature Set =
 census``, 9x9 window, ini/quick.param:99,105-106): 80 neighbour
 comparisons packed into 3 32-bit words per pixel. Plain torch on every
-device; the hamming cost over these words is the ``census_cost`` kernel
-(:mod:`i3dr_stereo_tpu_torch.ops.sgm_fused_t`).
+device. The flagship's hamming cost over these words is the
+``census_cost`` kernel (:mod:`i3dr_stereo_tpu_torch.ops.sgm_fused_t`);
+the dense matchers' float32 volume is :func:`census_cost_volume`.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from i3dr_stereo_tpu_torch.ops.sgm_fused_t import _popcount32
+
+BIG_COST = 1.0e9
 
 
 def _window_offsets(h: int, w: int):
@@ -56,3 +61,23 @@ def census_transform(image: torch.Tensor, height: int = 9,
     # two's-complement reinterpretation of the low 32 bits
     out = torch.where(out >= 2 ** 31, out - 2 ** 32, out).to(torch.int32)
     return out if batched else out[0]
+
+
+def census_cost_volume(left_census: torch.Tensor, right_census: torch.Tensor,
+                       min_disparity: int, disparity_range: int):
+    """Hamming cost volume of (B, H, W, NW) census words: ((B, H, W, D)
+    float32, valid), valid the in-image mask of each (x, d) pairing (right
+    pixel x - min_disparity - d inside the image); BIG_COST where invalid.
+    One disparity plane at a time, so no (B, H, W, D, NW) gather is held."""
+    B, H, W, _ = left_census.shape
+    dev = left_census.device
+    src = (torch.arange(W, device=dev)[:, None]
+           - torch.arange(disparity_range, device=dev) - int(min_disparity))
+    valid = (src >= 0) & (src < W)                              # (W, D)
+    C = torch.empty((B, H, W, disparity_range), dtype=torch.float32,
+                    device=dev)
+    for d in range(disparity_range):
+        x = left_census ^ right_census[:, :, src[:, d].clamp(0, W - 1)]
+        ham = _popcount32(x.to(torch.int64) & 0xFFFFFFFF).sum(-1)
+        C[..., d] = torch.where(valid[:, d], ham.to(torch.float32), BIG_COST)
+    return C, valid.expand(B, H, W, disparity_range)

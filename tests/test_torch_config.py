@@ -198,10 +198,12 @@ def test_unported_features_raise():
     pipe.update_config(occlusion_detection=False, interpolate_missing=True)
     with pytest.raises(NotImplementedError, match="hole filling"):
         pipe.process(img, img)
-    pipe.update_config(interpolate_missing=False, pyramid=False)
+    # dense (pyramid=False) I3DRSGM, SGBM and BM are ported; their hole
+    # filling (the WLS fill) and BP / CSBP are not
+    pipe.update_config(interpolate_missing=False, pyramid=False, interp=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pipe.process(img, img)
     for alg, fn in MATCHER_REGISTRY.items():
-        if alg != params.Algorithm.I3DRSGM:
+        if alg in (params.Algorithm.BP_GPU, params.Algorithm.CSBP_GPU):
             with pytest.raises(NotImplementedError, match="ROADMAP"):
                 fn(img, img, params.ALGORITHM_DEFAULTS[alg])
