@@ -23,7 +23,8 @@ final result line) on the first thing that is wrong:
      bit-equal;
    - remap at 2448x2048 on the distorted rig of ``bench.py``
      (pipeline_batch; both cameras), uint8 and float32 sources, cubic
-     and linear, B = 1 and 2: bit-equal, each timed;
+     and linear, B = 1 and 2: bit-equal (the left cubic uint8 B = 1 case
+     timed, beside ``grid_sample``);
    - the speckle keep-mask: on level 0's disparities of the flagship
      scene after the downsample-2 front-end (1224x1024, S = 25, max_diff
      1.0), on the same disparities at full 2448x2048 (S = 100 / 0.5), on
@@ -61,7 +62,41 @@ final result line) on the first thing that is wrong:
    defaults (speckle 100 / 4.0 at full resolution), the BM defaults and
    dense I3DRSGM at D = 64 once each at 1280x1024 (finite, density
    reported); times the SGBM frame and matcher (CUDA events, median of
-   10), reports peak memory, and profiles five SGBM frames as in 6.
+   10), reports peak memory, and profiles five SGBM frames as in 6;
+9. runs the fused cost + SGM kernels (``fused_census_fwd``,
+   ``fused_bt_fwd``) against their plain twins, C and S bit-equal in the
+   float32 and the int16 mode: the census kernel at every lean pyramid
+   level's shape of the 2448x2048 frame (2048x2448, 1024x1224, 512x616
+   and 256x312 after padding to multiples of 8; D = 32, NW = 3, base
+   -16 on inputs warped by the prediction, the coarsest level unwarped
+   from the minimum disparity; level 0 timed), at 1x2048x2448x256 base 0
+   (timed), a 17x17 census, non-uniform bases below -64 and a ragged
+   B = 2 frame; the BT kernel at 1x1024x1280x128 (timed) and at a ragged
+   D = 130 with a negative minimum disparity; then ``fused_census_sgm``
+   (4 paths, level 0's shape, and 8 paths on the ragged frame) and
+   ``fused_bt_sgm`` (8 paths, 1024x1280x128) whole against their twins;
+10. drives the lean flagship frame: as 4, through
+    ``StereoPipeline(device="cuda", lean=True)``: ``fused_census_fwd``,
+    ``sgm_volume``, ``sgm_volume_sum``, ``speckle_ccl`` and ``remap``
+    must launch during one frame, the same accuracy gate, the matcher
+    through the twins at 256x320, timings, peak memory and the 5-frame
+    profile;
+11. drives the lean SGBM frame: 8's scene and config with
+    ``window_size=1`` through ``StereoPipeline(device="cuda",
+    lean=True)``: ``fused_bt_fwd`` must launch, the same gates, and the
+    ``lean=False`` frame at the same config timed in turns with it
+    (lean, default, default, lean), peak memory and profile of both;
+12. runs ``bench.py:sgm_direct_2448``'s chain once at 2048x2448: census
+    -> ``fused_census_sgm`` (D = 256, 4 paths, int16 partials) -> WTA ->
+    min C < 255 -> LR check 1.5 -> speckle 100 / 0.5 at downsample 2:
+    finite, density, error against ground truth and peak memory
+    reported.
+
+Each kernel's entry also carries its bound (the least time the card could
+take: bytes moved once over 3.35 TB/s, or operations over 67 TFLOP/s,
+whichever is larger, at the timed shape) and, where one PyTorch call
+computes the same function (``torch.gather`` for the row gather,
+``grid_sample`` for the remap), that call's time.
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -105,17 +140,29 @@ SOURCES = {
                    "i3dr_stereo_tpu/ops/sgm_pallas.py:173,229"),
     "sgm_volume_sum": ("i3dr_stereo_tpu_torch/csrc/sgm_volume.cu",
                        "i3dr_stereo_tpu/ops/sgm_pallas.py:173,229"),
+    "fused_census_fwd": ("i3dr_stereo_tpu_torch/csrc/fused_cost_sgm.cu",
+                         "i3dr_stereo_tpu/ops/fused_cost_sgm.py:201"),
+    "fused_bt_fwd": ("i3dr_stereo_tpu_torch/csrc/fused_cost_sgm.cu",
+                     "i3dr_stereo_tpu/ops/fused_cost_sgm.py:348"),
 }
 # the kernels of each main path: the flagship frame, the SGBM frame
 FLAGSHIP_KERNELS = ("census_cost", "sgm_path", "sum_wta", "row_gather",
                     "remap", "speckle_ccl")
 SGBM_KERNELS = ("remap", "sgm_volume", "sgm_volume_sum")
+LEAN_FLAGSHIP_KERNELS = ("fused_census_fwd", "sgm_volume", "sgm_volume_sum",
+                         "speckle_ccl", "remap")
+LEAN_SGBM_KERNELS = ("remap", "fused_bt_fwd", "sgm_volume", "sgm_volume_sum")
+# the card's published peaks (H100 SXM): HBM bytes/s, float32 FLOP/s
+# outside the tensor cores (integer operations are counted at that rate)
+PEAK_BYTES_S = 3.35e12
+PEAK_OPS_S = 67e12
 
 # substrings of the port's CUDA kernel names, for the profile table
 KERNEL_SYMBOLS = ("census_cost_kernel", "sgm_path_kernel", "sum_wta_kernel",
                   "row_gather_kernel", "remap_kernel", "ccl_local",
                   "ccl_boundary", "ccl_count", "ccl_keep",
-                  "sgm_volume_kernel", "sgm_volume_sum_kernel")
+                  "sgm_volume_kernel", "sgm_volume_sum_kernel",
+                  "fused_fwd_kernel")
 # accuracy_bench.py:sgbm_1280's scene and size
 H_SGBM, W_SGBM = 1024, 1280
 SGBM_SCENE = dict(max_disp=120, background_disp=8, layers=5, seed=21)
@@ -145,6 +192,31 @@ def gpu_ms(fn, iters: int = 10, warmup: int = 2) -> float:
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def gpu_times(fn, iters: int) -> list:
+    """Per-call device times of ``fn`` (CUDA events), no warm-up."""
+    times = []
+    for _ in range(iters):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return times
+
+
+def set_bound(stats, name: str, nbytes: float, nops: float) -> None:
+    """The least time the card could take for the timed call: every input
+    read once and every output written once over the memory rate, or its
+    operations over the float32 rate, whichever is larger."""
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = nops / PEAK_OPS_S * 1e3
+    stats[name]["bound_ms"] = max(t_bytes, t_ops)
+    stats[name]["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    stats[name]["bound_bytes"] = int(nbytes)
 
 
 def card_line() -> str:
@@ -276,12 +348,21 @@ def compare_level(sf, bg, cl, cr, *, bpm, H_real, W_real, directions, ur,
             lambda: sf.census_cost(cl, cr, D, **kw))
         stats["census_cost"]["plain_ms"] = gpu_ms(
             lambda: sf.census_cost_plain(cl, cr, D, **kw), iters=1, warmup=0)
+        n = C.numel()                       # (pixel, disparity) pairs
+        NW = cl.shape[-1]
+        # both census planes in, C (and the int16 plane) out; xor +
+        # popcount per word and pair
+        set_bound(stats, "census_cost",
+                  2 * cl.numel() * 4 + n * (1 if Cw is None else 3),
+                  n * (2 * NW + 1))
         per_dir = [gpu_ms(lambda o=o: sf.sgm_path(C, *o, *pen[o]))
                    for o in order]
         per_dir_plain = [gpu_ms(lambda o=o: sf.sgm_path_plain(C, *o, *pen[o]),
                                 iters=1, warmup=0) for o in order]
         stats["sgm_path"]["ms"] = sum(per_dir) / len(per_dir)
         stats["sgm_path"]["plain_ms"] = sum(per_dir_plain) / len(per_dir)
+        # C in, float32 path costs out; ~10 operations per pair
+        set_bound(stats, "sgm_path", 5 * n, 10 * n)
         print("sgm_path ms per direction " + ", ".join(
             f"{o}: {a:.3f} (plain {b:.1f})"
             for o, a, b in zip(order, per_dir, per_dir_plain)), flush=True)
@@ -291,6 +372,10 @@ def compare_level(sf, bg, cl, cr, *, bpm, H_real, W_real, directions, ur,
         stats["sum_wta"]["plain_ms"] = gpu_ms(
             lambda: sf.sum_wta_plain(C, parts, len(down), len(up), **wkw),
             iters=1, warmup=0)
+        # C and every float32 partial in, one float32 disparity per pixel
+        # out; one add per partial and ~6 operations of WTA per pair
+        set_bound(stats, "sum_wta", n * (1 + 4 * len(parts)) + 4 * n // D,
+                  n * (len(parts) + 6))
 
 
 def phase_kernels(stats):
@@ -354,6 +439,17 @@ def phase_kernels(stats):
                 stats["row_gather"]["plain_ms"] = gpu_ms(
                     lambda: bg.block_shift_gather_plain(rp, pred_eff, q, 16),
                     iters=1, warmup=0)
+                # source, index and anchors in, the gathered image out
+                set_bound(stats, "row_gather",
+                          12 * rp.numel() + 4 * q.numel(), 6 * rp.numel())
+                # the one PyTorch call: gather with the clamped column
+                # index made beforehand
+                col = (torch.arange(Wp, dtype=torch.int32, device=dev)
+                       - pred_eff).clamp(0, Wp - 1).long()
+                check(torch.equal(torch.gather(rp, 2, col), rw),
+                      "torch.gather differs from row_gather")
+                stats["row_gather"]["library_ms"] = gpu_ms(
+                    lambda: torch.gather(rp, 2, col))
         compare_level(
             sf, bg, census_transform(lp, cfg.census_height, cfg.census_width),
             census_transform(rw, cfg.census_height, cfg.census_width),
@@ -410,15 +506,42 @@ def phase_remap(stats):
                              f"B={B}")
                     check(torch.equal(out, ref),
                           f"{label}: differs from its twin (max {err})")
+                    if (side, interp, B, src.dtype) != ("left", "cubic", 1,
+                                                        torch.uint8):
+                        print(f"{label} {W_FULL}x{H_FULL}: bit-equal",
+                              flush=True)
+                        continue
                     ms = gpu_ms(lambda: rectify.remap(src, m))
                     plain = gpu_ms(lambda: rectify.remap_plain(src, m),
                                    iters=1, warmup=0)
-                    if (side, interp, B, src.dtype) == ("left", "cubic", 1,
-                                                        torch.uint8):
-                        stats["remap"]["ms"] = ms
-                        stats["remap"]["plain_ms"] = plain
+                    stats["remap"]["ms"] = ms
+                    stats["remap"]["plain_ms"] = plain
+                    # the uint8 source, the map (index, 4 + 4 weights) in,
+                    # float32 out; 16 taps of multiply-add per pixel
+                    set_bound(stats, "remap", src.numel()
+                              + m.flat_idx.numel() * (4 + 4 * 2 * m.taps + 4),
+                              m.flat_idx.numel() * 2 * (m.taps ** 2 + m.taps))
+                    # the one PyTorch call: bicubic grid_sample (Keys
+                    # a = -0.75, border padding) on a float32 image
+                    mx, my = rectify.inverse_rectify_map_xy(cam)
+                    grid = torch.tensor(np.stack(
+                        [(mx + 0.5) * 2 / W_FULL - 1,
+                         (my + 0.5) * 2 / H_FULL - 1], -1)[None],
+                        dtype=torch.float32, device=DEVICE)
+                    srcf = src.float()[None, None]
+                    lib = torch.nn.functional.grid_sample(
+                        srcf, grid, mode="bicubic", padding_mode="border",
+                        align_corners=False)[0, 0]
+                    lib_err = (lib - out).abs().max().item()
+                    stats["remap"]["library_ms"] = gpu_ms(
+                        lambda: torch.nn.functional.grid_sample(
+                            srcf, grid, mode="bicubic",
+                            padding_mode="border", align_corners=False))
                     print(f"{label} {W_FULL}x{H_FULL}: bit-equal, {ms:.4f} ms"
-                          f" (plain {plain:.3f} ms)", flush=True)
+                          f" (plain {plain:.3f} ms; grid_sample "
+                          f"{stats['remap']['library_ms']:.4f} ms, max "
+                          f"|remap - grid_sample| {lib_err:.4f} grey levels)",
+                          flush=True)
 
 
 def compare_speckle(sp, d, v, S, md, label, stats, time_it=False):
@@ -475,6 +598,9 @@ def phase_speckle(stats, sc, cfg):
         sp, dd, vv, S2, md2, f"speckle flagship ds2 {W_FULL // 2}x"
         f"{H_FULL // 2} S={S2} max_diff={md2}", stats, time_it=True)
     stats["speckle_ccl"]["ms"], stats["speckle_ccl"]["plain_ms"] = ms, plain
+    # disparity and valid in, the keep-mask out (labels and sizes are
+    # scratch); a few compares per pixel and neighbour
+    set_bound(stats, "speckle_ccl", 6 * dd.numel(), 10 * dd.numel())
     compare_speckle(sp, d.contiguous(), v.contiguous(), S, md,
                     f"speckle full {W_FULL}x{H_FULL} S={S} max_diff={md}",
                     stats, time_it=True)
@@ -508,7 +634,6 @@ def phase_speckle(stats, sc, cfg):
 # ---------------------------------------------------------------------------
 
 def phase_main_path(stats, card):
-    from i3dr_stereo_tpu_torch import _build
     from i3dr_stereo_tpu_torch.config import params
     from i3dr_stereo_tpu_torch.core import camera
     from i3dr_stereo_tpu_torch.io.synthetic import layered_scene
@@ -531,35 +656,10 @@ def phase_main_path(stats, card):
     left = torch.tensor(raw_u8(sc.left), device=DEVICE)
     right = torch.tensor(raw_u8(sc.right), device=DEVICE)
 
-    pipe.process(left, right)  # warm-up
-    torch.cuda.synchronize()
-    _build.reset_launches()
-    res = pipe.process(left, right)
-    torch.cuda.synchronize()
-    launches = dict(_build.LAUNCHES)
-    print(f"main path launches at {W_FULL}x{H_FULL}: {launches}", flush=True)
-    for name in FLAGSHIP_KERNELS:
-        check(launches[name] > 0, f"kernel {name} did not launch on the "
-              f"main path")
-        stats[name]["launches"] = launches[name]
-
-    d = res.disparity.cpu().numpy()
-    v = res.valid.cpu().numpy()
-    check(d.shape == (H_FULL, W_FULL) and v.shape == d.shape,
-          f"disparity shape {d.shape}")
-    check(bool(np.isfinite(d[v]).all()), "non-finite valid disparities")
-    check(res.depth is not None and bool(torch.isfinite(res.depth).all()),
-          "non-finite depth")
+    res = drive_frame(pipe, left, right, sc, FLAGSHIP_KERNELS, "main path",
+                      stats, record=FLAGSHIP_KERNELS)
     check(tuple(res.points["xyz"].shape) == (H_FULL * W_FULL, 3),
           "point cloud shape")
-    both = v & sc.valid
-    density = float(v.mean())
-    med = float(np.median(np.abs(d - sc.disparity)[both]))
-    print(f"main path accuracy: density {density:.4f}, GT-valid coverage "
-          f"{both.sum() / sc.valid.sum():.4f}, median |d - GT| {med:.4f} px",
-          flush=True)
-    check(density > 0.5, f"density {density} too low")
-    check(med < MAX_MEDIAN_ERR, f"median error {med} >= {MAX_MEDIAN_ERR}")
 
     # the distorted calibration: a real remap, finite outputs
     pipe_d = StereoPipeline(distorted_rig(camera), cfg, cloud, device=DEVICE)
@@ -582,15 +682,8 @@ def phase_main_path(stats, card):
     small = layered_scene(256, 320, max_disp=40, seed=2)
     ls = torch.tensor(small.left, device=DEVICE)
     rs = torch.tensor(small.right, device=DEVICE)
-    mk = pyramid_sgm_match(ls, rs, cfg)
-    mp = pyramid_sgm_match(ls, rs, cfg, plain=True)
-    agree = (mk.valid == mp.valid).float().mean().item()
-    vb = mk.valid & mp.valid
-    dd = (mk.disparity - mp.disparity)[vb].abs().max().item()
-    print(f"256x320 kernels vs twins: valid agreement {agree:.6f}, max |dd| "
-          f"{dd}", flush=True)
-    check(agree >= MIN_VALID_AGREE, f"valid agreement {agree}")
-    check(dd <= TOL_PATH_DISP, f"|dd| {dd} > {TOL_PATH_DISP}")
+    check_twins(pyramid_sgm_match(ls, rs, cfg),
+                pyramid_sgm_match(ls, rs, cfg, plain=True), "pyramid")
 
     # timing
     frame_ms = gpu_ms(lambda: pipe.process(left, right), iters=10, warmup=1)
@@ -736,6 +829,12 @@ def compare_volume(sgm, C, p1, p2, dirs, label, stats, pens=None,
         stats["sgm_volume"]["plain_ms"] = sum(per_dir_plain) / len(per_dir)
         stats["sgm_volume_sum"]["ms"] = sum_ms
         stats["sgm_volume_sum"]["plain_ms"] = sum_plain_ms
+        n = Cb.numel()
+        # one direction: C in, a float32 partial out; the sum: every
+        # partial in, S out
+        set_bound(stats, "sgm_volume", n * (Cb.element_size() + 4), 10 * n)
+        set_bound(stats, "sgm_volume_sum", 4 * n * (len(parts) + 1),
+                  n * len(parts))
         print("sgm_volume ms per direction " + ", ".join(
             f"{o}: {a:.3f} (plain {b:.1f})" for o, a, b in zip(
                 [d for _, ds in groups for d in ds], per_dir,
@@ -818,33 +917,8 @@ def phase_sgbm(stats, card):
     left = torch.tensor(raw_u8(sc.left), device=DEVICE)
     right = torch.tensor(raw_u8(sc.right), device=DEVICE)
 
-    pipe.process(left, right)  # warm-up
-    torch.cuda.synchronize()
-    _build.reset_launches()
-    res = pipe.process(left, right)
-    torch.cuda.synchronize()
-    launches = dict(_build.LAUNCHES)
-    print(f"SGBM frame launches at {W_SGBM}x{H_SGBM}: {launches}",
-          flush=True)
-    for name in SGBM_KERNELS:
-        check(launches[name] > 0, f"kernel {name} did not launch on the "
-              f"SGBM frame")
-    for name in ("sgm_volume", "sgm_volume_sum"):
-        stats[name]["launches"] = launches[name]
-
-    d = res.disparity.cpu().numpy()
-    v = res.valid.cpu().numpy()
-    check(d.shape == (H_SGBM, W_SGBM), f"disparity shape {d.shape}")
-    check(bool(np.isfinite(d[v]).all()), "non-finite valid disparities")
-    both = v & sc.valid
-    density = float(v.mean())
-    med = float(np.median(np.abs(d - sc.disparity)[both]))
-    print(f"SGBM frame accuracy: density {density:.4f}, GT-valid coverage "
-          f"{both.sum() / sc.valid.sum():.4f}, median |d - GT| {med:.4f} px",
-          flush=True)
-    check(density > 0.5, f"SGBM density {density} too low")
-    check(med < MAX_MEDIAN_ERR, f"SGBM median error {med} >= "
-          f"{MAX_MEDIAN_ERR}")
+    res = drive_frame(pipe, left, right, sc, SGBM_KERNELS, "SGBM frame",
+                      stats, record=("sgm_volume", "sgm_volume_sum"))
 
     # the same matcher through the plain twins on the card, small scene
     small = layered_scene(256, 320, max_disp=40, seed=2)
@@ -857,13 +931,7 @@ def phase_sgbm(stats, card):
         mp = registry.sgbm_match(ls, rs, scfg)
     finally:
         registry.sgm_aggregate = sgm.sgm_aggregate
-    agree = (mk.valid == mp.valid).float().mean().item()
-    vb = mk.valid & mp.valid
-    dd = (mk.disparity - mp.disparity)[vb].abs().max().item()
-    print(f"SGBM 256x320 kernels vs twins: valid agreement {agree:.6f}, max "
-          f"|dd| {dd}", flush=True)
-    check(agree >= MIN_VALID_AGREE, f"SGBM valid agreement {agree}")
-    check(dd <= TOL_PATH_DISP, f"SGBM |dd| {dd} > {TOL_PATH_DISP}")
+    check_twins(mk, mp, "SGBM")
 
     # the other dense matchers, once each at full size
     others = (
@@ -908,6 +976,393 @@ def phase_sgbm(stats, card):
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     return pipe, left, right
 
+# ---------------------------------------------------------------------------
+# phase 9: the fused cost + SGM kernels against their plain twins
+# ---------------------------------------------------------------------------
+
+def compare_fused(name, kernel, plain, args, kw, label, stats):
+    """One fused forward kernel vs its twin: C and S bit-equal in the
+    float32 and the int16 mode. Returns the kernel's (C, float32 L)."""
+    out = None
+    for od in (torch.float32, torch.int16):
+        C, S = kernel(*args, out_dtype=od, **kw)
+        Cp, Sp = plain(*args, out_dtype=od, **kw)
+        torch.cuda.synchronize()
+        errC = int((C.int() - Cp.int()).abs().max().item())
+        errS = (S.float() - Sp.float()).abs().max().item()
+        stats[name]["err"] = max(stats[name]["err"], float(errC), errS)
+        check(torch.equal(C, Cp), f"{label}: {name} C differs from its twin "
+              f"(max {errC})")
+        check(torch.equal(S, Sp), f"{label}: {name} {str(od)[6:]} S differs "
+              f"from its twin (max {errS})")
+        out = out or (C, S)
+    C, L = out
+    print(f"{label}: {name} C and S (float32, int16) bit-equal to the twin "
+          f"({(C == 255).float().mean().item():.4f} of C invalid, "
+          f"{(C == 254).float().mean().item():.6f} at the clamp, max L below "
+          f"1e9 {L[L < 5e8].max().item():.1f})", flush=True)
+    return C, L
+
+
+def time_fused(name, kernel, plain, args, kw, nbytes_in, ops_per_pair, stats,
+               label, card, record=True):
+    """Time one fused forward kernel (float32 S) and its twin; with
+    ``record`` the numbers go into the kernel's entry."""
+    kw = dict(kw, out_dtype=torch.float32)
+    ms = gpu_ms(lambda: kernel(*args, **kw))
+    plain_ms = gpu_ms(lambda: plain(*args, **kw), iters=1, warmup=0)
+    C, _ = kernel(*args, **kw)
+    n = C.numel()
+    nbytes = nbytes_in + 5 * n      # inputs in; uint8 C and float32 L out
+    if record:
+        stats[name]["ms"], stats[name]["plain_ms"] = ms, plain_ms
+        set_bound(stats, name, nbytes, ops_per_pair * n)
+    print(f"{label} [{card}]: {name} {ms:.4f} ms (plain twin {plain_ms:.1f} "
+          f"ms; {nbytes / 1e9:.3f} GB moved once, "
+          f"{nbytes / PEAK_BYTES_S * 1e3:.4f} ms at the HBM peak, "
+          f"{nbytes / ms / 1e6:.1f} GB/s reached)", flush=True)
+
+
+def compare_whole(fn, args, kw, label, card):
+    """A whole fused aggregation, kernels vs twins: S and C bit-equal."""
+    (S, C), ms = timed(lambda: fn(*args, **kw))
+    (Sp, Cp), plain_ms = timed(lambda: fn(*args, plain=True, **kw))
+    check(torch.equal(C, Cp), f"{label}: C differs from the twins'")
+    check(torch.equal(S, Sp), f"{label}: S differs from the twins' (max "
+          f"{(S.double() - Sp.double()).abs().max().item()})")
+    level = 9999 if S.dtype == torch.int32 else 5e8
+    print(f"{label} [{card}]: S ({str(S.dtype)[6:]}) and C bit-equal to the "
+          f"twins ({(S >= level).float().mean().item():.4f} of S "
+          f"invalid-level); {ms:.3f} ms (twins {plain_ms:.1f} ms), one call "
+          f"each", flush=True)
+
+
+def phase_fused(stats, card):
+    from i3dr_stereo_tpu_torch.config import params
+    from i3dr_stereo_tpu_torch.io.synthetic import layered_scene
+    from i3dr_stereo_tpu_torch.matchers import pyramid as pyr
+    from i3dr_stereo_tpu_torch.ops import fused_cost_sgm as fcs
+    from i3dr_stereo_tpu_torch.ops import sgm
+    from i3dr_stereo_tpu_torch.ops.block_gather import pad_edge
+    from i3dr_stereo_tpu_torch.ops.census import census_transform
+    from i3dr_stereo_tpu_torch.ops.cost import xsobel_prefilter
+
+    dev = torch.device(DEVICE)
+    cfg = flagship_cfg(params)
+    J = ("fused_census_fwd", fcs.fused_census_horizontal,
+         fcs.fused_census_horizontal_plain)
+    K = ("fused_bt_fwd", fcs.fused_bt_horizontal,
+         fcs.fused_bt_horizontal_plain)
+
+    def bases(H, value):
+        return torch.full((H // fcs.row_tile(H),), value, dtype=torch.int32,
+                          device=dev)
+
+    # J at every level of the lean pyramid at its own shape, built as
+    # matchers/pyramid.py:_match_level_lean builds it; the prediction that
+    # warps the right view is the downsampled ground truth
+    sc = layered_scene(H_FULL, W_FULL, **SCENE)
+    l = torch.tensor(sc.left, device=dev)[None]
+    r = torch.tensor(sc.right, device=dev)[None]
+    gt = torch.tensor(sc.disparity, device=dev)[None]
+    n_levels = cfg.max_pyramid_level
+    D = 32
+    level0 = None
+    for level in range(n_levels):
+        if level:
+            l, r, gt = (pyr._downsample2(l), pyr._downsample2(r),
+                        pyr._downsample2(gt))
+        _, Hh, Wh = l.shape
+        H8, W8 = -(-Hh // 8) * 8, -(-Wh // 8) * 8
+        if level == n_levels - 1:
+            base, rw = int(round(cfg.min_disparity / 2 ** level)), r
+        else:
+            pred = torch.round(gt / 2 ** level).to(torch.int64).clamp(
+                0, Wh - 1)
+            xs = torch.arange(Wh, dtype=torch.int64, device=dev)
+            base, rw = -(D // 2), r.gather(2, (xs - pred).clamp(0, Wh - 1))
+        cl = census_transform(pad_edge(l, H8, W8), cfg.census_height,
+                              cfg.census_width)
+        cr = census_transform(pad_edge(rw, H8, W8), cfg.census_height,
+                              cfg.census_width)
+        args = (fcs.census_word_planes(cl), fcs.census_word_planes(cr),
+                bases(H8, base), D, cfg.p1, cfg.p2)
+        compare_fused(*J, args, {}, f"lean level {level} {Wh}x{Hh} in "
+                      f"{W8}x{H8} D={D} base={base}", stats)
+        if level == 0:
+            level0 = (cl, cr, args)
+    cl0, cr0, args0 = level0
+    NW = cl0.shape[-1]
+    words_in = 2 * cl0.numel() * 4
+    time_fused(*J, args0, {}, words_in, 2 * NW + 10, stats,
+               f"lean level 0 {W_FULL}x{H_FULL}x{D} base=-16", card)
+
+    # bench.py:sgm_direct_2448's shape: all 256 disparities at full
+    # resolution, unwarped (base 0)
+    cl256 = census_transform(torch.tensor(sc.left, device=dev)[None], 9, 9)
+    cr256 = census_transform(torch.tensor(sc.right, device=dev)[None], 9, 9)
+    args256 = (fcs.census_word_planes(cl256), fcs.census_word_planes(cr256),
+               bases(H_FULL, 0), 256, 10.0, 120.0)
+    compare_fused(*J, args256, {}, f"direct {W_FULL}x{H_FULL}x256 base=0",
+                  stats)
+    time_fused(*J, args256, {}, words_in, 2 * NW + 10, stats,
+               f"direct {W_FULL}x{H_FULL}x256 base=0", card, record=False)
+    del cl256, cr256, args256
+    torch.cuda.empty_cache()
+
+    # small shapes: a 17x17 census against the negated image (distances
+    # up to 288, so C clamps and the sweep does not), non-uniform bases
+    # reaching below -64, ragged B = 2 (H = 44: row tiles of 4; W = 131;
+    # D = 48 leaves half the lanes of K = 2 empty)
+    rng = np.random.default_rng(3)
+    a = torch.tensor(rng.uniform(0, 255, (2, 44, 131)), dtype=torch.float32,
+                     device=dev)
+    b = torch.roll(a, -5, 2) + torch.tensor(rng.normal(0, 4, a.shape),
+                                            dtype=torch.float32, device=dev)
+    ragged = torch.tensor(rng.integers(-90, 20, (11,)), dtype=torch.int32,
+                          device=dev)
+    for win, other, D_s, md, base, label in (
+            (17, -a, 40, 0, bases(44, 0), "17x17 census vs the negative"),
+            (9, b, 48, 3, ragged, "ragged 2x44x131 D=48 non-uniform base")):
+        planes = [fcs.census_word_planes(census_transform(x, win, win))
+                  for x in (a, other)]
+        C, L = compare_fused(*J, (*planes, base, D_s, 1.5, 9.0),
+                             dict(min_disp=md), label, stats)
+        if win == 17:
+            check(bool((C == 254).any()) and L[L < 5e8].max().item() > 254,
+                  "17x17: no distance above the uint8 clamp")
+    pens = [(1.5, 9.0), (2.0, 11.0), (1.5, 9.0), (2.0, 11.0), (0.75, 30.0),
+            (2.0, 11.0), (1.5, 9.0), (0.5, 4.0)]
+    ca, cb = census_transform(a, 9, 9), census_transform(b, 9, 9)
+    for od in (torch.int16, torch.float32):
+        compare_whole(fcs.fused_census_sgm, (ca, cb, 48),
+                      dict(base=-7, min_disp=2, per_direction_penalties=pens,
+                           directions=sgm.DIRECTIONS_8, out_dtype=od),
+                      f"fused_census_sgm ragged 2x44x131x48 8 paths "
+                      f"{str(od)[6:]}", card)
+
+    # K at the lean SGBM frame's shape and at a ragged D with a negative
+    # minimum disparity
+    ssc = layered_scene(H_SGBM, W_SGBM, **SGBM_SCENE)
+    lp = xsobel_prefilter(torch.tensor(raw_u8(ssc.left), device=dev)
+                          .float()[None], 31).contiguous()
+    rp = xsobel_prefilter(torch.tensor(raw_u8(ssc.right), device=dev)
+                          .float()[None], 31).contiguous()
+    argsK = (lp, rp, bases(H_SGBM, 0), 128, 400.0, 800.0)
+    compare_fused(*K, argsK, {}, f"lean SGBM {W_SGBM}x{H_SGBM}x128", stats)
+    time_fused(*K, argsK, {}, 2 * lp.numel() * 4, 30, stats,
+               f"lean SGBM {W_SGBM}x{H_SGBM}x128", card)
+    pa, pb = xsobel_prefilter(a, 31), xsobel_prefilter(b, 31)
+    C, _ = compare_fused(*K, (pa, pb, ragged, 130, 16.0, 64.0),
+                         dict(min_disp=-2),
+                         "ragged 2x44x131 D=130 min_disp=-2 non-uniform base",
+                         stats)
+    check(bool((C[C < 255] % 2 == 1).any()), "BT: no half-sample cost")
+
+    # the whole aggregations at the two main paths' shapes
+    compare_whole(fcs.fused_census_sgm, (cl0, cr0, 32),
+                  dict(base=-16, per_direction_penalties=[(cfg.p1, cfg.p2)] * 4,
+                       directions=sgm.DIRECTIONS_4),
+                  f"fused_census_sgm {W_FULL}x{H_FULL}x32 4 paths int16",
+                  card)
+    compare_whole(fcs.fused_bt_sgm, (lp, rp, 128),
+                  dict(p1=200.0, p2=400.0, directions=sgm.DIRECTIONS_8),
+                  f"fused_bt_sgm {W_SGBM}x{H_SGBM}x128 8 paths int16", card)
+
+
+# ---------------------------------------------------------------------------
+# phases 10 - 12: the lean frames and the direct 256-disparity chain
+# ---------------------------------------------------------------------------
+
+def drive_frame(pipe, left, right, sc, kernels, label, stats, record=()):
+    """One counted frame of ``pipe``: every kernel of ``kernels`` must
+    launch, outputs finite, the accuracy gate. Returns the result."""
+    from i3dr_stereo_tpu_torch import _build
+
+    pipe.process(left, right)  # warm-up
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    res = pipe.process(left, right)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    H, W = left.shape
+    print(f"{label} launches at {W}x{H}: {launches}", flush=True)
+    for name in kernels:
+        check(launches[name] > 0, f"kernel {name} did not launch on the "
+              f"{label}")
+    for name in record:
+        stats[name]["launches"] = launches[name]
+    d = res.disparity.cpu().numpy()
+    v = res.valid.cpu().numpy()
+    check(d.shape == (H, W) and v.shape == d.shape,
+          f"{label}: disparity shape {d.shape}")
+    check(bool(np.isfinite(d[v]).all()), f"{label}: non-finite disparities")
+    check(res.depth is not None and bool(torch.isfinite(res.depth).all()),
+          f"{label}: non-finite depth")
+    both = v & sc.valid
+    density = float(v.mean())
+    med = float(np.median(np.abs(d - sc.disparity)[both]))
+    print(f"{label} accuracy: density {density:.4f}, GT-valid coverage "
+          f"{both.sum() / sc.valid.sum():.4f}, median |d - GT| {med:.4f} px",
+          flush=True)
+    check(density > 0.5, f"{label}: density {density} too low")
+    check(med < MAX_MEDIAN_ERR, f"{label}: median error {med} >= "
+          f"{MAX_MEDIAN_ERR}")
+    return res
+
+
+def check_twins(mk, mp, label):
+    agree = (mk.valid == mp.valid).float().mean().item()
+    vb = mk.valid & mp.valid
+    dd = (mk.disparity - mp.disparity)[vb].abs().max().item()
+    print(f"{label} 256x320 kernels vs twins: valid agreement {agree:.6f}, "
+          f"max |dd| {dd}", flush=True)
+    check(agree >= MIN_VALID_AGREE, f"{label}: valid agreement {agree}")
+    check(dd <= TOL_PATH_DISP, f"{label}: |dd| {dd} > {TOL_PATH_DISP}")
+
+
+def phase_lean_flagship(stats, card):
+    from i3dr_stereo_tpu_torch.config import params
+    from i3dr_stereo_tpu_torch.core import camera
+    from i3dr_stereo_tpu_torch.io.synthetic import layered_scene
+    from i3dr_stereo_tpu_torch.matchers.pyramid import pyramid_sgm_match
+    from i3dr_stereo_tpu_torch.pipeline.stereo_pipeline import StereoPipeline
+
+    cfg = flagship_cfg(params)
+    sc = layered_scene(H_FULL, W_FULL, **SCENE)
+    rig = camera.StereoRig.synthetic(W_FULL, H_FULL, fx=580.0,
+                                     baseline_m=0.3)
+    cloud = params.PointCloudConfig(depth_max=100.0, depth_min=0.5)
+    pipe = StereoPipeline(rig, cfg, cloud, device=DEVICE, compute_depth=True,
+                          compute_points=True, compute_crop=True, lean=True)
+    check(pipe.rectify_inputs and pipe.config.speckle_size == 100,
+          "the lean flagship frame must rectify and speckle-filter")
+    left = torch.tensor(raw_u8(sc.left), device=DEVICE)
+    right = torch.tensor(raw_u8(sc.right), device=DEVICE)
+    torch.cuda.reset_peak_memory_stats()
+    res = drive_frame(pipe, left, right, sc, LEAN_FLAGSHIP_KERNELS,
+                      "lean flagship frame", stats,
+                      record=("fused_census_fwd",))
+    check(tuple(res.points["xyz"].shape) == (H_FULL * W_FULL, 3),
+          "lean flagship frame: point cloud shape")
+
+    small = layered_scene(256, 320, max_disp=40, seed=2)
+    ls = torch.tensor(small.left, device=DEVICE)
+    rs = torch.tensor(small.right, device=DEVICE)
+    check_twins(pyramid_sgm_match(ls, rs, cfg, lean=True),
+                pyramid_sgm_match(ls, rs, cfg, lean=True, plain=True),
+                "lean pyramid")
+
+    frame_ms = gpu_ms(lambda: pipe.process(left, right), iters=10, warmup=1)
+    rl, rr = res.rect_left, res.rect_right
+    match_ms = gpu_ms(lambda: pyramid_sgm_match(rl, rr, cfg, lean=True),
+                      iters=10, warmup=1)
+    print(f"timing [{card}]: lean flagship frame (raw u8 -> rectify -> lean "
+          f"pyramid with speckle -> depth, cloud, crop) {frame_ms:.3f} "
+          f"ms/frame ({1000 / frame_ms:.2f} FPS), matcher {match_ms:.3f} ms "
+          f"at {W_FULL}x{H_FULL}", flush=True)
+    print(f"lean flagship peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    return pipe, left, right
+
+
+def phase_lean_sgbm(stats, card):
+    import functools
+
+    from i3dr_stereo_tpu_torch.config import params
+    from i3dr_stereo_tpu_torch.core import camera
+    from i3dr_stereo_tpu_torch.io.synthetic import layered_scene
+    from i3dr_stereo_tpu_torch.matchers import registry
+    from i3dr_stereo_tpu_torch.ops import fused_cost_sgm as fcs
+    from i3dr_stereo_tpu_torch.pipeline.stereo_pipeline import StereoPipeline
+
+    # the lean condition is window_size <= 1; everything else unchanged
+    cfg = sgbm_cfg(params).replace(window_size=1)
+    sc = layered_scene(H_SGBM, W_SGBM, **SGBM_SCENE)
+    rig = camera.StereoRig.synthetic(W_SGBM, H_SGBM, fx=580.0,
+                                     baseline_m=0.3)
+    cloud = params.PointCloudConfig(depth_max=100.0, depth_min=0.5)
+    left = torch.tensor(raw_u8(sc.left), device=DEVICE)
+    right = torch.tensor(raw_u8(sc.right), device=DEVICE)
+    pipes, peaks = {}, {}
+    for lean in (True, False):
+        name = "lean" if lean else "default"
+        pipes[name] = StereoPipeline(rig, cfg, cloud, device=DEVICE,
+                                     lean=lean)
+        torch.cuda.reset_peak_memory_stats()
+        drive_frame(pipes[name], left, right, sc,
+                    LEAN_SGBM_KERNELS if lean else SGBM_KERNELS,
+                    f"SGBM window-1 frame ({name})", stats,
+                    record=("fused_bt_fwd",) if lean else ())
+        peaks[name] = torch.cuda.max_memory_allocated() / 2**30
+
+    small = layered_scene(256, 320, max_disp=40, seed=2)
+    ls = torch.tensor(small.left, device=DEVICE)
+    rs = torch.tensor(small.right, device=DEVICE)
+    scfg = cfg.replace(disparity_range=64)
+    mk = registry.sgbm_match(ls, rs, scfg, lean=True)
+    registry.fused_bt_sgm = functools.partial(fcs.fused_bt_sgm, plain=True)
+    try:
+        mp = registry.sgbm_match(ls, rs, scfg, lean=True)
+    finally:
+        registry.fused_bt_sgm = fcs.fused_bt_sgm
+    check_twins(mk, mp, "lean SGBM")
+
+    # the two routes in turns on this card: lean, default, default, lean
+    times = {"lean": [], "default": []}
+    for name in ("lean", "default", "default", "lean"):
+        pipes[name].process(left, right)
+        times[name] += gpu_times(lambda: pipes[name].process(left, right), 5)
+    for name, ts in times.items():
+        print(f"timing [{card}]: SGBM window-1 frame, {name} route (raw u8 "
+              f"-> rectify -> SGBM {cfg.disparity_range}d 8 paths -> depth, "
+              f"cloud) {statistics.median(ts):.3f} ms/frame (median of "
+              f"{len(ts)}, {min(ts):.3f}-{max(ts):.3f}), peak device memory "
+              f"{peaks[name]:.2f} GiB at {W_SGBM}x{H_SGBM}", flush=True)
+    return pipes, left, right
+
+
+def phase_direct(card):
+    """``bench.py:sgm_direct_2448``'s chain, once."""
+    from i3dr_stereo_tpu_torch.io.synthetic import layered_scene
+    from i3dr_stereo_tpu_torch.ops import sgm
+    from i3dr_stereo_tpu_torch.ops.census import census_transform
+    from i3dr_stereo_tpu_torch.ops.fused_cost_sgm import fused_census_sgm
+    from i3dr_stereo_tpu_torch.ops.lr_check import lr_consistency
+    from i3dr_stereo_tpu_torch.ops.speckle import speckle_filter
+    from i3dr_stereo_tpu_torch.ops.wta import wta_disparity
+
+    sc = layered_scene(H_FULL, W_FULL, **SCENE)
+    l = torch.tensor(sc.left, device=DEVICE)[None]
+    r = torch.tensor(sc.right, device=DEVICE)[None]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    def chain():
+        cl, cr = census_transform(l, 9, 9), census_transform(r, 9, 9)
+        S, C = fused_census_sgm(cl, cr, 256, base=0, p1=10.0, p2=120.0,
+                                directions=sgm.DIRECTIONS_4,
+                                out_dtype=torch.int16)
+        disp, ok = wta_disparity(S, 0, uniqueness_ratio=10.0, subpixel=True)
+        ok = ok & (C.amin(-1) < 255)
+        del C
+        disp, ok = lr_consistency(disp, ok, S.to(torch.float32), 0, 1.5)
+        del S
+        ok = speckle_filter(disp, ok, max_size=100, max_diff=0.5,
+                            downsample=2)
+        return torch.where(ok, disp, -10000.0), ok
+
+    (out, ok), ms = timed(chain)
+    check(tuple(out.shape) == (1, H_FULL, W_FULL)
+          and bool(torch.isfinite(out).all()), "direct chain: not finite")
+    v = ok[0].cpu().numpy()
+    both = v & sc.valid
+    med = float(np.median(np.abs(out[0].cpu().numpy() - sc.disparity)[both]))
+    print(f"direct 256-disparity chain [{card}] at {W_FULL}x{H_FULL}: finite, "
+          f"density {v.mean():.4f}, median |d - GT| {med:.4f} px, {ms:.1f} ms "
+          f"(one call), peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -917,6 +1372,7 @@ def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     from i3dr_stereo_tpu_torch import _build
 
+    t_start = time.perf_counter()
     card = card_line()
     print(card, flush=True)
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
@@ -932,17 +1388,33 @@ def main() -> int:
         if any(k in line for k in ("entry function", "registers", "spill")):
             print("  " + line.strip(), flush=True)
 
-    stats = {k: {"err": 0.0, "ms": None, "plain_ms": None, "launches": 0}
+    stats = {k: {"err": 0.0, "ms": None, "plain_ms": None, "launches": 0,
+                 "bound_ms": None, "bound_by": None, "library_ms": None}
              for k in SOURCES}
     phase_kernels(stats)
     phase_profile(*phase_main_path(stats, card), card)
     phase_volume(stats)
     phase_profile(*phase_sgbm(stats, card), card, label="SGBM")
+    phase_fused(stats, card)
+    phase_profile(*phase_lean_flagship(stats, card), card,
+                  label="lean flagship")
+    pipes, left, right = phase_lean_sgbm(stats, card)
+    for name, pipe in pipes.items():
+        phase_profile(pipe, left, right, card,
+                      label=f"SGBM window-1 {name}")
+    phase_direct(card)
+    print(f"whole run {time.perf_counter() - t_start:.1f} s", flush=True)
 
+    for k, st in stats.items():
+        check(st["launches"] > 0, f"kernel {k} launched on no main path")
+        check(None not in (st["ms"], st["plain_ms"], st["bound_ms"]),
+              f"kernel {k} has an unmeasured number")
     kernels = [{"name": k, "route": "cuda", "source": SOURCES[k][0],
                 "replaces": SOURCES[k][1], "launches": s["launches"],
                 "max_abs_err": s["err"], "ms": s["ms"],
-                "plain_ms": s["plain_ms"]} for k, s in stats.items()]
+                "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
+                "bound_by": s["bound_by"], "bound_bytes": s["bound_bytes"],
+                "library_ms": s["library_ms"]} for k, s in stats.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,10 @@
 """Build, load and launch the port's hand-written CUDA kernels.
 
 The sources in ``csrc/*.cu`` are compiled at first use with ``nvcc`` for
-Hopper (``sm_90a``) into one shared library with a plain C interface,
-loaded with ``ctypes`` — no PyTorch headers, so a cold build takes
-seconds, not minutes. The library lands in ``_kernels/<hash>/`` beside
+Hopper (``sm_90a``), one ``nvcc`` per source and all of them at once,
+and linked into one shared library with a plain C interface, loaded with
+``ctypes`` — no PyTorch headers, so a cold build takes seconds, not
+minutes. The library lands in ``_kernels/<hash>/`` beside
 this file (listed in ``.gitignore``), keyed by a hash of the sources and
 flags, so an edited kernel is rebuilt and an unchanged one is reused.
 
@@ -32,12 +33,12 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_kernels"
 LIB_NAME = "libi3dr_torch_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 # kernel name -> launches since the last reset_launches()
 LAUNCHES = {"census_cost": 0, "sgm_path": 0, "sum_wta": 0, "row_gather": 0,
             "remap": 0, "speckle_ccl": 0, "sgm_volume": 0,
-            "sgm_volume_sum": 0}
+            "sgm_volume_sum": 0, "fused_census_fwd": 0, "fused_bt_fwd": 0}
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 # C entry -> argtypes (pointers and the stream as c_void_p: a bare Python
@@ -57,11 +58,17 @@ _SIGNATURES = {
     "i3dr_remap": (_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # d, valid, labels, sizes, keep, B, H, W, max_size, max_diff, stream
     "i3dr_speckle_ccl": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
-    # C, u8, out, B, H, W, D (padded), dy, dx, p1, p2, stream
+    # C, u8, out, B, H, W, D, dy, dx, p1, p2, stream
     "i3dr_sgm_volume": (_P, _I, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P),
     # parts (host array of device pointers), n_parts, group_end (host
     # int array), n_groups, int16_mode, out, n, stream
     "i3dr_sgm_volume_sum": (_P, _I, _P, _I, _I, _P, _L, _P),
+    # cl, cr, base, th, C, S, s_i16, B, H, W, NW, D, min_disp, p1, p2, stream
+    "i3dr_fused_census_fwd": (_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I,
+                              _I, _F, _F, _P),
+    # left, right, base, th, C, S, s_i16, B, H, W, D, min_disp, p1, p2, stream
+    "i3dr_fused_bt_fwd": (_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _F,
+                          _F, _P),
 }
 
 
@@ -95,14 +102,30 @@ def build() -> Path:
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{LIB_NAME}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-           *(str(f) for f in _sources() if f.suffix == ".cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (out.parent / "build.log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n"
-                           f"{proc.stderr[-4000:]}")
+    tag = f"{os.getpid()}.tmp"
+    nvcc = _nvcc()
+    cus = [f for f in _sources() if f.suffix == ".cu"]
+    objs = [out.parent / f"{f.stem}.{tag}.o" for f in cus]
+    procs = [subprocess.Popen(
+        [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(o), str(f)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for f, o in zip(cus, objs)]
+    logs = [proc.communicate()[0] for proc in procs]
+    (out.parent / "build.log").write_text("".join(logs))
+    failed = [(f.name, log) for f, proc, log in zip(cus, procs, logs)
+              if proc.returncode != 0]
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(
+            f"{name}:\n{log[-4000:]}" for name, log in failed))
+    tmp = out.with_name(f"{LIB_NAME}.{tag}")
+    link = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                           *(str(o) for o in objs)],
+                          capture_output=True, text=True)
+    for o in objs:
+        o.unlink(missing_ok=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"linking the kernels failed (exit "
+                           f"{link.returncode}):\n{link.stderr[-4000:]}")
     os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
     return out
 

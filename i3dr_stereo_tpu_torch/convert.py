@@ -46,3 +46,18 @@ def rig_from_reference(rig) -> StereoRig:
     """The port's StereoRig with the reference rig's calibration."""
     return StereoRig(_camera_from_reference(rig.left),
                      _camera_from_reference(rig.right))
+
+
+def lean_from_backend(backend: str) -> bool:
+    """The port's ``lean`` argument for the reference's SGM backend name
+    (its ``I3DR_SGM_BACKEND``): the lean fused path for ``pallas`` and
+    ``pallas_interpret``, the default path for ``pallas_t`` and
+    ``pallas_t_interpret``. The reference's ``xla`` and ``auto`` name no
+    path of the port and raise."""
+    if backend in ("pallas", "pallas_interpret"):
+        return True
+    if backend in ("pallas_t", "pallas_t_interpret"):
+        return False
+    raise ValueError(f"the port has no counterpart of SGM backend "
+                     f"{backend!r}: expected pallas, pallas_interpret, "
+                     f"pallas_t or pallas_t_interpret")

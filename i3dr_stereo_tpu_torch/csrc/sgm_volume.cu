@@ -1,5 +1,8 @@
 // sgm_volume — SGM path aggregation over (B, H, W, D) cost volumes of
-// any padded D (a multiple of 128, up to 512), float32 or uint8 costs.
+// any D from 1 to 512, float32 or uint8 costs. sgm_aggregate hands it
+// volumes padded to a multiple of 128 (the TPU's padding); the lean
+// fused path (fused_cost_sgm.cu) hands it the exact D, as the TPU's
+// _horizontal_pass / _vertical_pass take it there.
 //
 // Replaces the two kernels of i3dr_stereo_tpu/ops/sgm_pallas.py behind
 // sgm_aggregate_pallas:
@@ -26,9 +29,12 @@
 //     sum.
 //
 // Design: one warp per scanline (sgm_path.cu's design, generalised). Each
-// lane holds K = D/32 consecutive disparities of the carry in registers,
-// so d-1 / d+1 cross lanes only at a lane's two ends (one shuffle each);
-// min_d is an in-lane min and the 5-step butterfly. Arithmetic is the
+// lane holds K = ceil(D/32) (1, 2, 4, 8, 12 or 16) consecutive
+// disparities of the carry in registers, so d-1 / d+1 cross lanes only
+// at a lane's two ends (one shuffle each); min_d is an in-lane min and
+// the 5-step butterfly (sgm_step.cuh). Where the lanes tile D exactly
+// and K is a multiple of 4 the costs load and the path costs store as
+// 16-byte vectors; any other D goes element by element. Arithmetic is the
 // reference's float32 sequence, rounded per operation (__fadd_rn /
 // __fsub_rn), so the kernel equals its torch twin bit for bit.
 //
@@ -43,39 +49,57 @@
 // in-place accumulation would remove it — later work.
 #include <climits>
 
-#include "common.cuh"
+#include "sgm_step.cuh"
 
 namespace {
 
 constexpr int MAX_PARTS = 8;
 constexpr int THREADS = 128;
 
-// the UNROLL steps of costs a lane loads ahead: K values per step
+// the costs of one step that a lane loads ahead: its K disparities, as
+// 16-byte (float) or 4-byte (uint8) vectors when the lanes tile D exactly
+// (vec), else one by one, skipping the disparities past D
 template <typename T, int K>
 struct Raw;
 
 template <int K>
 struct Raw<float, K> {
-  float4 v[K / 4];
-  __device__ __forceinline__ void load(const float* p) {
+  float v[K];
+  __device__ __forceinline__ void load(const float* p, bool vec, int last) {
+    if constexpr (K % 4 == 0) {
+      if (vec) {
 #pragma unroll
-    for (int q = 0; q < K / 4; ++q)
-      v[q] = __ldg(reinterpret_cast<const float4*>(p) + q);
+        for (int q = 0; q < K / 4; ++q) {
+          const float4 w = __ldg(reinterpret_cast<const float4*>(p) + q);
+          v[4 * q] = w.x, v[4 * q + 1] = w.y, v[4 * q + 2] = w.z,
+                v[4 * q + 3] = w.w;
+        }
+        return;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < K; ++k) v[k] = k <= last ? __ldg(p + k) : i3dr::BIG;
   }
-  __device__ __forceinline__ float get(int k) const {
-    const float4 w = v[k >> 2];
-    const int j = k & 3;
-    return j == 0 ? w.x : j == 1 ? w.y : j == 2 ? w.z : w.w;
-  }
+  __device__ __forceinline__ float get(int k) const { return v[k]; }
 };
 
 template <int K>
 struct Raw<uint8_t, K> {
-  unsigned v[K / 4];
-  __device__ __forceinline__ void load(const uint8_t* p) {
+  unsigned v[(K + 3) / 4];
+  __device__ __forceinline__ void load(const uint8_t* p, bool vec, int last) {
+    if constexpr (K % 4 == 0) {
+      if (vec) {
 #pragma unroll
-    for (int q = 0; q < K / 4; ++q)
-      v[q] = __ldg(reinterpret_cast<const unsigned*>(p) + q);
+        for (int q = 0; q < K / 4; ++q)
+          v[q] = __ldg(reinterpret_cast<const unsigned*>(p) + q);
+        return;
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < (K + 3) / 4; ++q) v[q] = 0u;
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      if (k <= last) v[k >> 2] |= (unsigned)__ldg(p + k) << (8 * (k & 3));
   }
   __device__ __forceinline__ float get(int k) const {
     const unsigned b = (v[k >> 2] >> (8 * (k & 3))) & 0xffu;
@@ -86,9 +110,8 @@ struct Raw<uint8_t, K> {
 template <typename T, int K>
 __global__ void __launch_bounds__(THREADS)
     sgm_volume_kernel(const T* __restrict__ C, float* __restrict__ out,
-                      int H, int W, int dy, int dx, long long n_warps,
+                      int H, int W, int D, int dy, int dx, long long n_warps,
                       int n_lines, float p1, float p2) {
-  constexpr int D = i3dr::WARP * K;
   constexpr int UNROLL = K <= 4 ? 8 : (K <= 8 ? 4 : 2);
   const int lane = threadIdx.x & 31;
   const long long warp =
@@ -96,6 +119,8 @@ __global__ void __launch_bounds__(THREADS)
   if (warp >= n_warps) return;  // uniform across the warp
   const int b = (int)(warp / n_lines);
   const int line = (int)(warp % n_lines);
+  const int last = D - 1 - lane * K;  // see sgm_step.cuh
+  const bool vec = K % 4 == 0 && D == i3dr::WARP * K;
 
   // first pixel of the scanline: the pixel whose predecessor (y-dy, x-dx)
   // lies outside the volume
@@ -122,40 +147,37 @@ __global__ void __launch_bounds__(THREADS)
 
   float prev[K];
 #pragma unroll
-  for (int k = 0; k < K; ++k) prev[k] = 0.0f;
+  for (int k = 0; k < K; ++k) prev[k] = k <= last ? 0.0f : CUDART_INF_F;
 
   for (int s0 = 0; s0 < len; s0 += UNROLL) {
     Raw<T, K> raw[UNROLL];
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u)
-      if (s0 + u < len) raw[u].load(cp + (long long)(s0 + u) * stride);
+      if (s0 + u < len)
+        raw[u].load(cp + (long long)(s0 + u) * stride, vec, last);
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) {
       if (s0 + u < len) {  // uniform across the warp
-        float lm = prev[0];
+        float c[K], L[K];
 #pragma unroll
-        for (int k = 1; k < K; ++k) lm = fminf(lm, prev[k]);
-        const float m = i3dr::warp_min(lm);
-        float up = __shfl_up_sync(i3dr::FULL, prev[K - 1], 1);  // L(d-1)
-        float dn = __shfl_down_sync(i3dr::FULL, prev[0], 1);    // L(d+1)
-        if (lane == 0) up = i3dr::BIG;
-        if (lane == i3dr::WARP - 1) dn = i3dr::BIG;
-        const float mp2 = __fadd_rn(m, p2);
-        float L[K];
+        for (int k = 0; k < K; ++k) c[k] = raw[u].get(k);
+        i3dr::sgm_step<K>(prev, c, L, lane, last, p1, p2);
+        float* o = op + (long long)(s0 + u) * stride;
+        bool stored = false;
+        if constexpr (K % 4 == 0) {
+          if (vec) {
 #pragma unroll
-        for (int k = 0; k < K; ++k) {
-          const float lo = k == 0 ? up : prev[k - 1];
-          const float hi = k == K - 1 ? dn : prev[k + 1];
-          const float best = fminf(fminf(prev[k], mp2),
-                                   fminf(__fadd_rn(lo, p1), __fadd_rn(hi, p1)));
-          L[k] = __fsub_rn(__fadd_rn(raw[u].get(k), best), m);
+            for (int q = 0; q < K / 4; ++q)
+              reinterpret_cast<float4*>(o)[q] = make_float4(
+                  L[4 * q], L[4 * q + 1], L[4 * q + 2], L[4 * q + 3]);
+            stored = true;
+          }
         }
-        float4* o4 =
-            reinterpret_cast<float4*>(op + (long long)(s0 + u) * stride);
+        if (!stored) {
 #pragma unroll
-        for (int q = 0; q < K / 4; ++q)
-          o4[q] = make_float4(L[4 * q], L[4 * q + 1], L[4 * q + 2],
-                              L[4 * q + 3]);
+          for (int k = 0; k < K; ++k)
+            if (k <= last) o[k] = L[k];
+        }
 #pragma unroll
         for (int k = 0; k < K; ++k) prev[k] = L[k];
       }
@@ -211,12 +233,14 @@ int launch_path(const void* C, void* out, int B, int H, int W, int D, int dy,
   float* o = (float*)out;
 #define I3DR_SGM_VOLUME_LAUNCH(K)                                          \
   sgm_volume_kernel<T, K><<<(unsigned)blocks, THREADS, 0, stream>>>(      \
-      c, o, H, W, dy, dx, n_warps, n_lines, p1, p2)
-  switch (D) {
-    case 128: I3DR_SGM_VOLUME_LAUNCH(4); break;
-    case 256: I3DR_SGM_VOLUME_LAUNCH(8); break;
-    case 384: I3DR_SGM_VOLUME_LAUNCH(12); break;
-    case 512: I3DR_SGM_VOLUME_LAUNCH(16); break;
+      c, o, H, W, D, dy, dx, n_warps, n_lines, p1, p2)
+  switch (i3dr::lanes_k(D)) {
+    case 1: I3DR_SGM_VOLUME_LAUNCH(1); break;
+    case 2: I3DR_SGM_VOLUME_LAUNCH(2); break;
+    case 4: I3DR_SGM_VOLUME_LAUNCH(4); break;
+    case 8: I3DR_SGM_VOLUME_LAUNCH(8); break;
+    case 12: I3DR_SGM_VOLUME_LAUNCH(12); break;
+    case 16: I3DR_SGM_VOLUME_LAUNCH(16); break;
     default: return (int)cudaErrorInvalidValue;
   }
 #undef I3DR_SGM_VOLUME_LAUNCH
@@ -226,7 +250,7 @@ int launch_path(const void* C, void* out, int B, int H, int W, int D, int dy,
 }  // namespace
 
 // u8 = 1: C is uint8 (255 = invalid); u8 = 0: C is float32. D is the
-// padded disparity count (128, 256, 384 or 512).
+// volume's exact disparity count, 1 to 512.
 extern "C" int i3dr_sgm_volume(const void* C, int u8, void* out, int B, int H,
                                int W, int D, int dy, int dx, float p1,
                                float p2, void* stream) {

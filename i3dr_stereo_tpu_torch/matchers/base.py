@@ -54,10 +54,12 @@ class MatchResult:
 class StereoMatcher:
     """Stateful wrapper: a config and the match calls. Parameter changes
     never rebuild an engine (cf. I3DRSGM.cpp:630-654's destroy/recreate
-    per setter)."""
+    per setter). ``lean`` selects the reference's second SGM backend
+    (the fused cost + SGM path, ``matchers/registry.py``)."""
 
-    def __init__(self, config: MatcherConfig):
+    def __init__(self, config: MatcherConfig, *, lean: bool = False):
         self._config = config.sanitize()
+        self.lean = bool(lean)
 
     @property
     def config(self) -> MatcherConfig:
@@ -82,7 +84,7 @@ class StereoMatcher:
                 "not ported yet (ROADMAP.md Queue 1 item 16)")
         return MATCHER_REGISTRY[cfg.algorithm](
             to_mono_f32(torch.as_tensor(left)),
-            to_mono_f32(torch.as_tensor(right)), cfg)
+            to_mono_f32(torch.as_tensor(right)), cfg, lean=self.lean)
 
     # reference-compatible aliases (abstractStereoMatcher.h)
     forward_match = match
@@ -100,9 +102,10 @@ class StereoMatcher:
                            valid=res.valid.flip(-1))
 
 
-def create_matcher(config: MatcherConfig | Algorithm) -> StereoMatcher:
+def create_matcher(config: MatcherConfig | Algorithm, *,
+                   lean: bool = False) -> StereoMatcher:
     """Factory keyed by the reference's algorithm enum
     (init_matcher, generate_disparity.cpp:263-331)."""
     if isinstance(config, Algorithm):
         config = ALGORITHM_DEFAULTS[config]
-    return StereoMatcher(config)
+    return StereoMatcher(config, lean=lean)

@@ -1,6 +1,9 @@
-"""Coarse-to-fine pyramid census SGM (torch port of the flagship branch of
-``i3dr_stereo_tpu.matchers.pyramid`` — the ``pallas_t`` branch the TPU
-runs: block-anchor warp, residual-window census SGM, true backmatching).
+"""Coarse-to-fine pyramid census SGM (torch port of
+``i3dr_stereo_tpu.matchers.pyramid``): by default the flagship branch —
+the ``pallas_t`` branch the TPU runs: block-anchor warp, residual-window
+census SGM, true backmatching — and with ``lean=True`` the reference's
+second backend (its ``I3DR_SGM_BACKEND=pallas`` branch), made one
+argument.
 
 Each level matches over a narrow residual window (31 disparities, the
 engine's "Number Of Disparities = 31", ini/quick.param:128) around the
@@ -22,6 +25,14 @@ level searches from the configured minimum disparity. Per level:
    the ``speckle_ccl`` kernel);
 6. masked 3x3 median; between levels, invalid pixels take the local
    median.
+
+A lean level (:func:`_match_level_lean`) replaces 1-4: edge-pad to
+multiples of 8, warp the right image by the whole prediction with a
+plain gather, so the residual window is uniform (base -K/2); census
+both; ``fused_census_sgm`` (kernel ``fused_census_fwd``, then
+``sgm_volume`` and ``sgm_volume_sum`` over the uint8 volume); plain WTA
+on the int32 sums; and backmatching by a forward splat of the absolute
+map (:func:`_roundtrip_check`).
 
 Not ported yet, and raising ``NotImplementedError`` rather than skipping:
 half-pel subpix passes, occlusion handling and hole filling (ROADMAP.md
@@ -45,6 +56,7 @@ from i3dr_stereo_tpu_torch.ops.block_gather import (
     pad_edge,
 )
 from i3dr_stereo_tpu_torch.ops.census import census_transform
+from i3dr_stereo_tpu_torch.ops.fused_cost_sgm import fused_census_sgm
 from i3dr_stereo_tpu_torch.ops.median import median3x3, median3x3_masked
 from i3dr_stereo_tpu_torch.ops.sgm import DIRECTIONS_4, DIRECTIONS_8
 from i3dr_stereo_tpu_torch.ops.sgm_fused_t import (
@@ -52,6 +64,7 @@ from i3dr_stereo_tpu_torch.ops.sgm_fused_t import (
     right_disparity_from_C,
 )
 from i3dr_stereo_tpu_torch.ops.speckle import speckle_filter
+from i3dr_stereo_tpu_torch.ops.wta import wta_disparity
 
 
 def _downsample2(img: torch.Tensor) -> torch.Tensor:
@@ -135,12 +148,15 @@ def _reject_unported(passes) -> None:
 
 def pyramid_sgm_match(left, right, cfg: MatcherConfig,
                       profile: Optional[SGMProfile] = None, *,
+                      lean: bool = False,
                       plain: bool = False) -> MatchResult:
     """Full coarse-to-fine match of (H, W) or (B, H, W) images.
 
-    ``plain=True`` runs the kernels' plain torch twins on whatever device
-    the images are on (the reference run on the card); by default a CPU
-    tensor takes the twins and a CUDA tensor the kernels."""
+    ``lean=True`` takes the fused cost + SGM levels (module docstring);
+    the default is the flagship branch. ``plain=True`` runs the kernels'
+    plain torch twins on whatever device the images are on (the
+    reference run on the card); by default a CPU tensor takes the twins
+    and a CUDA tensor the kernels."""
     if profile is None:
         profile = profile_from_config(cfg)
     left, right = torch.as_tensor(left), torch.as_tensor(right)
@@ -165,6 +181,7 @@ def pyramid_sgm_match(left, right, cfg: MatcherConfig,
         pyr_r.append(_downsample2(pyr_r[-1]))
 
     n_dirs = 4 if cfg.num_directions == 4 else 8
+    dirs = DIRECTIONS_4 if n_dirs == 4 else DIRECTIONS_8
     disp = valid = cur_level = None
     for p in passes:
         ll, rr = pyr_l[p.level], pyr_r[p.level]
@@ -185,18 +202,25 @@ def pyramid_sgm_match(left, right, cfg: MatcherConfig,
             pred = median3x3(pred)
             pred_int = torch.round(pred).to(torch.int32).clamp(0, Wh - 1)
             base_val = 0
-        disp, valid, bm = _match_level_fused_t(
-            ll, rr, pred_int, base_val, K, pens, n_dirs,
-            (p.census_h, p.census_w),
-            subpixel=(p.level == 0 and p.subpixel),
-            uniqueness_ratio=p.uniqueness_ratio,
-            want_backmatch=p.backmatch, plain=plain)
+        level_kw = dict(subpixel=(p.level == 0 and p.subpixel),
+                        uniqueness_ratio=p.uniqueness_ratio, plain=plain)
+        if lean:
+            disp, valid = _match_level_lean(
+                ll, rr, pred_int, base_val, K, pens, dirs,
+                (p.census_h, p.census_w), **level_kw)
+        else:
+            disp, valid, bm = _match_level_fused_t(
+                ll, rr, pred_int, base_val, K, pens, n_dirs,
+                (p.census_h, p.census_w), want_backmatch=p.backmatch,
+                **level_kw)
         cur_level = p.level
         # matched right column must land inside the image
         xs = torch.arange(Wh, dtype=torch.int32, device=disp.device)
         rcol = xs - torch.round(disp).to(torch.int32)
         valid = valid & (rcol >= 0) & (rcol < Wh)
-        if p.backmatch:
+        if p.backmatch and lean:
+            valid = _roundtrip_check(disp, valid, p.backmatch_dist)
+        elif p.backmatch:
             valid = _backmatch_check_true(valid, bm, p.backmatch_dist, K,
                                           plain=plain)
         if p.speckle and p.speckle_max_region > 0:
@@ -300,3 +324,56 @@ def _backmatch_check_true(valid, bm, max_diff, K: int, *,
                                device=r_res.device)
     consistent = (d_at - r_res[:, :Hh, :Wh]).abs() <= max_diff
     return valid & in_w & consistent
+
+
+def _match_level_lean(ll, rr, pred_int, base_val: int, K: int, pens, dirs,
+                      census_hw, *, subpixel: bool, uniqueness_ratio=0.0,
+                      plain: bool = False):
+    """One lean pyramid level: the right image warped by the whole
+    prediction (a plain gather of ``clip(x - pred, 0, W-1)``), so the
+    residual window is the uniform ``-(K // 2)``; the coarsest level is
+    unwarped and searches from ``base_val``. Census on the images
+    edge-padded to multiples of 8, the fused cost + SGM with int16
+    partials, plain WTA. Returns (absolute disparity, valid)."""
+    B, Hh, Wh = ll.shape
+    if pred_int is None:
+        rw = rr
+        fused_base = int(base_val)
+        offset = float(base_val)
+    else:
+        xs = torch.arange(Wh, dtype=torch.int64, device=ll.device)
+        rw = rr.gather(2, (xs - pred_int).clamp(0, Wh - 1))
+        fused_base = -(K // 2)
+        offset = (pred_int + fused_base).to(torch.float32)
+    H8, W8 = _ceil_to(Hh, 8), _ceil_to(Wh, 8)
+    ch, cw = census_hw
+    cl = census_transform(pad_edge(ll, H8, W8), ch, cw)
+    cr = census_transform(pad_edge(rw, H8, W8), ch, cw)
+    S, C = fused_census_sgm(cl, cr, K, base=fused_base,
+                            per_direction_penalties=pens, directions=dirs,
+                            out_dtype=torch.int16, plain=plain)
+    S, C = S[:, :Hh, :Wh], C[:, :Hh, :Wh]
+    dk, ok = wta_disparity(S, 0, uniqueness_ratio=uniqueness_ratio,
+                           subpixel=subpixel)
+    return dk + offset, ok & (C.amin(-1) < 255)
+
+
+def _roundtrip_check(disp: torch.Tensor, valid: torch.Tensor, max_diff):
+    """Backmatching on the absolute map through an exact forward-splat
+    right map (the engine's "Compute Backmatching"): the right view's
+    disparity at column xr is the largest disparity of any left pixel
+    landing there (the nearest surface wins), and pixel x is consistent
+    iff |d_R(x - round(d)) - d(x)| <= max_diff. The splat is a
+    scatter-max, so it does not depend on the order of the writes."""
+    W = disp.shape[-1]
+    d_int = torch.round(disp).to(torch.int64)
+    xr = torch.arange(W, dtype=torch.int64, device=disp.device) - d_int
+    in_img = (xr >= 0) & (xr < W)
+    xr_c = xr.clamp(0, W - 1)
+    src = torch.where(valid & in_img, disp, -1.0e9)
+    d_right = torch.full_like(disp, -1.0e9).scatter_reduce_(
+        2, xr_c, src, "amax", include_self=True)
+    max_diff = torch.as_tensor(max_diff, dtype=torch.float32,
+                               device=disp.device)
+    consistent = (d_right.gather(2, xr_c) - disp).abs() <= max_diff
+    return valid & in_img & consistent

@@ -13,8 +13,14 @@
 Every backend takes (H, W) or (B, H, W) float32 images and returns a
 MatchResult. The SGM of SGBM and dense I3DRSGM is
 :func:`~i3dr_stereo_tpu_torch.ops.sgm.sgm_aggregate` (the ``sgm_volume``
-kernels on a CUDA tensor), with the TPU's semantics: the reference's
-backend switch is gone. The hole-filling options (``interp``,
+kernels on a CUDA tensor), with the semantics of the TPU's default
+backend. The reference's backend switch (``I3DR_SGM_BACKEND``) is one
+keyword here, ``lean`` (default False), on every backend and on
+:func:`compute_disparity`: ``lean=True`` computes what the reference
+computes under ``I3DR_SGM_BACKEND=pallas`` — the fused cost + SGM path of
+:mod:`~i3dr_stereo_tpu_torch.ops.fused_cost_sgm` in the pyramid and in
+SGBM with the BT cost at ``window_size <= 1``; everything else is the
+same on both, as in the reference. The hole-filling options (``interp``,
 ``interpolate_missing``) need the WLS fill and raise
 ``NotImplementedError`` naming ROADMAP.md Queue 1 item 10.
 """
@@ -34,6 +40,7 @@ from i3dr_stereo_tpu_torch.config.params import (
 from i3dr_stereo_tpu_torch.matchers.base import MatchResult
 from i3dr_stereo_tpu_torch.matchers.pyramid import pyramid_sgm_match
 from i3dr_stereo_tpu_torch.ops.census import census_cost_volume, census_transform
+from i3dr_stereo_tpu_torch.ops.block_gather import pad_edge
 from i3dr_stereo_tpu_torch.ops.cost import (
     box_aggregate,
     bt_cost_volume,
@@ -42,6 +49,7 @@ from i3dr_stereo_tpu_torch.ops.cost import (
     texture_response,
     xsobel_prefilter,
 )
+from i3dr_stereo_tpu_torch.ops.fused_cost_sgm import fused_bt_sgm
 from i3dr_stereo_tpu_torch.ops.lr_check import lr_consistency
 from i3dr_stereo_tpu_torch.ops.median import median3x3_masked
 from i3dr_stereo_tpu_torch.ops.sgm import (
@@ -113,10 +121,12 @@ def _postprocess(disp, valid, S, cfg: MatcherConfig):
     return disp, valid
 
 
-def bm_match(left, right, cfg: MatcherConfig) -> MatchResult:
+def bm_match(left, right, cfg: MatcherConfig, *,
+             lean: bool = False) -> MatchResult:
     """Block matching (cv::StereoBM semantics): x-Sobel or
     normalized-response prefilter, SAD over the correlation window, WTA
-    with texture and uniqueness checks, speckle filter, subpixel."""
+    with texture and uniqueness checks, speckle filter, subpixel. It has
+    no SGM, so ``lean`` changes nothing."""
     _reject_hole_filling(cfg)
     l, r, batched = _batched(left, right)
     if cfg.prefilter_type == "normalized_response":
@@ -140,17 +150,34 @@ def bm_match(left, right, cfg: MatcherConfig) -> MatchResult:
     return _result(disp, valid, batched)
 
 
-def sgbm_match(left, right, cfg: MatcherConfig) -> MatchResult:
+def sgbm_match(left, right, cfg: MatcherConfig, *,
+               lean: bool = False) -> MatchResult:
     """Semi-global block matching (cv::StereoSGBM semantics): BT costs on
     the prefiltered pair, box sum over the window, N-path SGM, WTA with
     uniqueness, LR check, speckle, parabolic subpixel.
 
-    This is the branch the TPU runs by default. The reference's "lean"
-    branch (pixelwise BT fused with the forward pass, TPU kernels J and
-    K, reached only under the non-default ``I3DR_SGM_BACKEND=pallas``)
-    is the next slice (ROADMAP.md Queue 2)."""
+    ``lean=True`` with the BT cost and ``window_size <= 1`` takes the
+    reference's lean branch: pixelwise BT in doubled units fused with the
+    forward pass (kernel ``fused_bt_fwd``), a uint8 volume and int16
+    partials for the other directions. With any other cost or window it
+    falls through to the default branch, as the reference does."""
     _reject_hole_filling(cfg)
     l, r, batched = _batched(left, right)
+    if lean and cfg.cost == CostFunction.BT and cfg.window_size <= 1:
+        H, W = l.shape[-2:]
+        H8, W8 = -(-H // 8) * 8, -(-W // 8) * 8
+        lp = pad_edge(xsobel_prefilter(l, cfg.prefilter_cap), H8, W8)
+        rp = pad_edge(xsobel_prefilter(r, cfg.prefilter_cap), H8, W8)
+        S, C = fused_bt_sgm(lp.contiguous(), rp.contiguous(),
+                            cfg.disparity_range, min_disp=cfg.min_disparity,
+                            p1=cfg.p1, p2=cfg.p2, directions=_directions(cfg))
+        S, C = S[:, :H, :W], C[:, :H, :W]
+        disp, valid = wta_disparity(S, cfg.min_disparity,
+                                    uniqueness_ratio=cfg.uniqueness_ratio,
+                                    subpixel=cfg.subpixel)
+        valid = valid & (C.amin(-1) < 255)
+        disp, valid = _postprocess(disp, valid, S.to(torch.float32), cfg)
+        return _result(disp, valid, batched)
     C, valid_cv = _cost_volume(l, r, cfg)
     C = box_aggregate(C, valid_cv, cfg.window_size)
     S = sgm_aggregate(C, cfg.p1, cfg.p2, _directions(cfg))
@@ -161,16 +188,18 @@ def sgbm_match(left, right, cfg: MatcherConfig) -> MatchResult:
     return _result(disp, valid, batched)
 
 
-def i3drsgm_match(left, right, cfg: MatcherConfig) -> MatchResult:
+def i3drsgm_match(left, right, cfg: MatcherConfig, *,
+                  lean: bool = False) -> MatchResult:
     """Census SGM with the Phobos-profile feature set: census window, 4
     path directions, backmatching check, speckle, median 3x3. With
     ``cfg.pyramid`` the coarse-to-fine schedule runs
-    (:mod:`~i3dr_stereo_tpu_torch.matchers.pyramid`). The dense path
+    (:mod:`~i3dr_stereo_tpu_torch.matchers.pyramid`), its lean levels
+    with ``lean=True``. The dense path is the same on both backends and
     covers at most 64 disparities, as on the TPU: a wider range warns and
     takes the pyramid, deep enough for the range at the engine's 31
     disparities per level (at least two levels)."""
     if cfg.pyramid:
-        return pyramid_sgm_match(left, right, cfg)
+        return pyramid_sgm_match(left, right, cfg, lean=lean)
     if cfg.disparity_range > 64:
         n = max(2, math.ceil(math.log2(max(cfg.disparity_range, 32)
                                        / 31.0)) + 1)
@@ -181,7 +210,8 @@ def i3drsgm_match(left, right, cfg: MatcherConfig) -> MatchResult:
             f"ranges). Set pyramid=True to choose this explicitly, "
             f"or disparity_range<=64 for the dense path.", stacklevel=2)
         return pyramid_sgm_match(
-            left, right, cfg.replace(pyramid=True, max_pyramid_level=n))
+            left, right, cfg.replace(pyramid=True, max_pyramid_level=n),
+            lean=lean)
     _reject_hole_filling(cfg)
     l, r, batched = _batched(left, right)
     C, _ = _cost_volume(l, r, cfg)
@@ -199,7 +229,7 @@ def i3drsgm_match(left, right, cfg: MatcherConfig) -> MatchResult:
 
 
 def _not_ported(item: str):
-    def match(left, right, cfg: MatcherConfig):
+    def match(left, right, cfg: MatcherConfig, *, lean: bool = False):
         raise NotImplementedError(
             f"{cfg.algorithm.name} is not ported yet (ROADMAP.md {item})")
     return match
@@ -215,6 +245,8 @@ MATCHER_REGISTRY = {
 }
 
 
-def compute_disparity(left, right, cfg: MatcherConfig) -> MatchResult:
+def compute_disparity(left, right, cfg: MatcherConfig, *,
+                      lean: bool = False) -> MatchResult:
     """Pure functional entry: dispatch on cfg.algorithm."""
-    return MATCHER_REGISTRY[cfg.algorithm](left, right, cfg.sanitize())
+    return MATCHER_REGISTRY[cfg.algorithm](left, right, cfg.sanitize(),
+                                           lean=lean)

@@ -5,8 +5,12 @@ direction tables the flagship's :mod:`~i3dr_stereo_tpu_torch.ops.sgm_fused_t`
 shares.
 
 :func:`sgm_aggregate` is what SGBM, dense I3DRSGM and every volume SGM
-call run. It has the TPU's semantics (the JAX package's default backend
-there), edges included, and no backend switch:
+call run by default. It has the TPU's semantics (the JAX package's
+default backend there), edges included. The reference's second backend,
+the lean fused path, is :mod:`~i3dr_stereo_tpu_torch.ops.fused_cost_sgm`
+behind the matchers' one ``lean`` argument; it calls
+:func:`sgm_volume_path` and :func:`sgm_volume_sum` here at the exact D,
+without the padding below:
 
 - the volume is padded as the TPU pads it: H and W to multiples of 8
   with zero cost, then D to a multiple of 128 with the invalid cost (1e9
@@ -41,7 +45,7 @@ from i3dr_stereo_tpu_torch import _build
 BIG = 1.0e9
 U8_SENTINEL = 255
 CLAMP = 10000.0          # int16 mode: each stored group total is clamped
-MAX_PADDED_D = 512       # the kernel holds D/32 <= 16 disparities a lane
+MAX_D = 512              # the kernel holds at most 16 disparities a lane
 
 # (dy, dx) path directions, named from where the path COMES FROM.
 DIRECTIONS_8: Tuple[Tuple[int, int], ...] = (
@@ -69,8 +73,10 @@ def _vmem_ok_vertical(W: int, D: int, n_carries: int, itemsize: int) -> bool:
     return (n_carries * 4 + 2 * itemsize + 2 * 2) * W * D < 10 * 1024 * 1024
 
 
-def _groups(directions, pen, W: int, padD: int, itemsize: int):
-    """The TPU's launches in order: [((p1, p2), [directions])]."""
+def _groups(directions, pen, W: int, D: int, itemsize: int):
+    """The TPU's launches in order: [((p1, p2), [directions])], for the D
+    it checks its VMEM rule with (the padded D in ``sgm_aggregate``, the
+    exact D on the lean path)."""
     out = [(pen[d], [d]) for d in _HORIZ if d in directions]
     for family in (_TOPDOWN, _BOTTOMUP):
         by_pen: dict = {}
@@ -78,7 +84,7 @@ def _groups(directions, pen, W: int, padD: int, itemsize: int):
             if d in directions:
                 by_pen.setdefault(pen[d], []).append(d)
         for pp, ds in by_pen.items():
-            if _vmem_ok_vertical(W, padD, len(ds), itemsize):
+            if _vmem_ok_vertical(W, D, len(ds), itemsize):
                 out.append((pp, ds))
             else:
                 out.extend((pp, [d]) for d in ds)
@@ -163,9 +169,9 @@ def sgm_volume_path_plain(C: torch.Tensor, dy: int, dx: int, p1: float,
 def sgm_volume_path(C: torch.Tensor, dy: int, dx: int, p1: float,
                     p2: float) -> torch.Tensor:
     """float32 path costs L of direction (dy, dx) (the path comes from
-    (y-dy, x-dx)), unclamped, over a padded (B, H, W, D) volume: float32
-    (invalid = 1e9) or uint8 (255 = invalid), D a multiple of 128 up to
-    512. A CPU tensor takes the plain version; a CUDA tensor launches the
+    (y-dy, x-dx)), unclamped, over a (B, H, W, D) volume at exactly its
+    D (at most 512): float32 (invalid = 1e9) or uint8 (255 = invalid). A
+    CPU tensor takes the plain version; a CUDA tensor launches the
     ``sgm_volume`` kernel (or raises)."""
     if C.device.type == "cpu":
         return sgm_volume_path_plain(C, dy, dx, p1, p2)
@@ -173,9 +179,9 @@ def sgm_volume_path(C: torch.Tensor, dy: int, dx: int, p1: float,
         raise ValueError(f"expected a float32 or uint8 (B, H, W, D) volume, "
                          f"got {tuple(C.shape)} {C.dtype}")
     B, H, W, D = C.shape
-    if D % 128 or D > MAX_PADDED_D:
-        raise ValueError(f"sgm_volume takes a padded D (a multiple of 128, "
-                         f"at most {MAX_PADDED_D}), got {D}")
+    if not 1 <= D <= MAX_D:
+        raise ValueError(f"sgm_volume takes 1 to {MAX_D} disparities, got "
+                         f"{D}")
     _build.require_cuda(C)
     out = torch.empty(C.shape, dtype=torch.float32, device=C.device)
     _build.launch("i3dr_sgm_volume", "sgm_volume", C.device,

@@ -11,7 +11,9 @@ plus the depth bounds reach the kernels as runtime scalars — changing
 them through :meth:`StereoPipeline.update_config` or ``update_cloud``
 rebuilds nothing. The device is explicit: a CPU pipeline runs the plain
 torch twins of the kernels, a CUDA pipeline runs the kernels and never
-falls back.
+falls back. ``lean=True`` passes the matchers' ``lean`` argument on (the
+reference's ``I3DR_SGM_BACKEND=pallas`` branch: the fused cost + SGM
+path).
 """
 
 from __future__ import annotations
@@ -76,6 +78,7 @@ class StereoPipeline:
     compute_points: bool = True
     compute_crop: bool = False
     rectify_inputs: bool = True
+    lean: bool = False
 
     def __post_init__(self):
         self.config = self.config.sanitize()
@@ -127,7 +130,8 @@ class StereoPipeline:
         cfg = self.config
         l = self._rectified(left, self._lmap)
         r = self._rectified(right, self._rmap)
-        res: MatchResult = MATCHER_REGISTRY[cfg.algorithm](l, r, cfg)
+        res: MatchResult = MATCHER_REGISTRY[cfg.algorithm](
+            l, r, cfg, lean=self.lean)
         disp, valid = res.disparity, res.valid
 
         # depth-range -> disparity clamp (generate_disparity.cpp:449-452):

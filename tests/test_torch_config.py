@@ -143,6 +143,23 @@ def test_port_imports_no_jax():
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
 
 
+def test_chip_smoke_imports_no_jax():
+    """The GPU smoke script imports nothing of JAX or of the JAX package
+    (neither exists on the machine with the card)."""
+    import ast
+
+    tree = ast.parse(open(os.path.join(_REPO, "chip_smoke.py")).read())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            names.add(node.module or "")
+    roots = {n.split(".")[0] for n in names}
+    assert "i3dr_stereo_tpu_torch" in roots
+    assert not roots & {"jax", "jaxlib", "i3dr_stereo_tpu"}, roots
+
+
 def test_cuda_device_raises_without_cuda():
     from i3dr_stereo_tpu_torch.pipeline.stereo_pipeline import StereoPipeline
 
