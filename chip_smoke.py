@@ -11,16 +11,18 @@ final result line) on the first thing that is wrong:
 1. prints the card (nvidia-smi name and power limit) and the versions;
 2. builds every kernel of the port from ``i3dr_stereo_tpu_torch/csrc``;
 3. runs each kernel against its plain torch twin on the card:
-   - census cost, SGM paths, WTA and row gather at every level of the
-     flagship pyramid at its own shape (2448x2048, 1224x1024, 612x512
-     and 306x256, padded to multiples of 128; D = 32, NW = 3, 4 paths,
-     P1/P2 = 0.1/0.8, bpm = -16 with the warp gather, and the coarsest
-     level unwarped from the minimum disparity; subpixel on level 0),
-     with each level's radius-17 backmatch gather, and at small ragged
-     shapes with bpm > 0 and bpm < 0, 4 and 8 paths, 9x9 and 17x17
-     census (the unclamped forward plane); costs and path sums
-     bit-equal, valid masks identical, disparities within 1e-4, gathers
-     bit-equal;
+   - census cost, every SGM sweep, the sweep that ends in the WTA and
+     the row gather at every level of the flagship pyramid at its own
+     shape (2448x2048, 1224x1024, 612x512 and 306x256, padded to
+     multiples of 128; D = 32, NW = 3, 4 paths, P1/P2 = 0.1/0.8,
+     bpm = -16 with the warp gather, and the coarsest level unwarped
+     from the minimum disparity; subpixel on level 0), with each level's
+     radius-17 backmatch gather, and at small ragged shapes with bpm > 0
+     and bpm < 0, 4 and 8 paths, 9x9 and 17x17 census (the unclamped
+     forward plane): costs and the int16 / float32 running sums after
+     every sweep bit-equal; valid masks identical, disparities within
+     1e-4, gathers bit-equal. Level 0 times every sweep, the up-sweep
+     with and without the WTA, and the stage;
    - remap at 2448x2048 on the distorted rig of ``bench.py``
      (pipeline_batch; both cameras), uint8 and float32 sources, cubic
      and linear, B = 1 and 2: bit-equal (the left cubic uint8 B = 1 case
@@ -95,8 +97,10 @@ final result line) on the first thing that is wrong:
 Each kernel's entry also carries its bound (the least time the card could
 take: bytes moved once over 3.35 TB/s, or operations over 67 TFLOP/s,
 whichever is larger, at the timed shape) and, where one PyTorch call
-computes the same function (``torch.gather`` for the row gather,
-``grid_sample`` for the remap), that call's time.
+computes the same function (``grid_sample`` for the remap), that call's
+time; for the row gather it is the time of the whole function in PyTorch
+calls (anchor lookup, both clamps, ``x - e``, ``torch.gather``), with the
+``torch.gather`` alone on a ready index as a second figure.
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -126,10 +130,10 @@ MAX_MEDIAN_ERR = 0.25    # the repo's accuracy gate (px)
 SOURCES = {
     "census_cost": ("i3dr_stereo_tpu_torch/csrc/census_cost.cu",
                     "i3dr_stereo_tpu/ops/sgm_fused_t.py:187"),
-    "sgm_path": ("i3dr_stereo_tpu_torch/csrc/sgm_path.cu",
-                 "i3dr_stereo_tpu/ops/sgm_fused_t.py:187,242,318,423"),
-    "sum_wta": ("i3dr_stereo_tpu_torch/csrc/sum_wta.cu",
-                "i3dr_stereo_tpu/ops/sgm_fused_t.py:423"),
+    "sgm_sweep": ("i3dr_stereo_tpu_torch/csrc/sgm_sweep.cu",
+                  "i3dr_stereo_tpu/ops/sgm_fused_t.py:187,242,318"),
+    "sgm_sweep_wta": ("i3dr_stereo_tpu_torch/csrc/sgm_sweep_wta.cu",
+                      "i3dr_stereo_tpu/ops/sgm_fused_t.py:423"),
     "row_gather": ("i3dr_stereo_tpu_torch/csrc/row_gather.cu",
                    "i3dr_stereo_tpu/ops/block_gather.py:109"),
     "remap": ("i3dr_stereo_tpu_torch/csrc/remap.cu",
@@ -146,8 +150,8 @@ SOURCES = {
                      "i3dr_stereo_tpu/ops/fused_cost_sgm.py:348"),
 }
 # the kernels of each main path: the flagship frame, the SGBM frame
-FLAGSHIP_KERNELS = ("census_cost", "sgm_path", "sum_wta", "row_gather",
-                    "remap", "speckle_ccl")
+FLAGSHIP_KERNELS = ("census_cost", "sgm_sweep", "sgm_sweep_wta",
+                    "row_gather", "remap", "speckle_ccl")
 SGBM_KERNELS = ("remap", "sgm_volume", "sgm_volume_sum")
 LEAN_FLAGSHIP_KERNELS = ("fused_census_fwd", "sgm_volume", "sgm_volume_sum",
                          "speckle_ccl", "remap")
@@ -158,7 +162,7 @@ PEAK_BYTES_S = 3.35e12
 PEAK_OPS_S = 67e12
 
 # substrings of the port's CUDA kernel names, for the profile table
-KERNEL_SYMBOLS = ("census_cost_kernel", "sgm_path_kernel", "sum_wta_kernel",
+KERNEL_SYMBOLS = ("census_cost_kernel", "sgm_sweep_kernel",
                   "row_gather_kernel", "remap_kernel", "ccl_local",
                   "ccl_boundary", "ccl_count", "ccl_keep",
                   "sgm_volume_kernel", "sgm_volume_sum_kernel",
@@ -264,6 +268,69 @@ def raw_u8(img) -> np.ndarray:
     return np.clip(np.rint(img), 0, 255).astype(np.uint8)
 
 
+def flagship_levels(cfg, sc):
+    """Every level of the flagship pyramid at its own shape (padded to
+    multiples of 128, ragged W_real/H_real), built as pyramid_sgm_match
+    builds it: (level, left, right, prediction or None, anchors, bpm,
+    H_real, W_real) with the padded images on the card. The prediction
+    that warps the right view (``row_gather`` at radius 16) is the
+    downsampled ground truth, clamped to its block anchors; the coarsest
+    level is unwarped and searches from the minimum disparity."""
+    from i3dr_stereo_tpu_torch.matchers import pyramid as pyr
+    from i3dr_stereo_tpu_torch.ops import block_gather as bg
+
+    dev = torch.device(DEVICE)
+    l = torch.tensor(sc.left, device=dev)[None]
+    r = torch.tensor(sc.right, device=dev)[None]
+    gt = torch.tensor(sc.disparity, device=dev)[None]
+    n_levels = cfg.max_pyramid_level
+    for level in range(n_levels):
+        if level:
+            l, r, gt = (pyr._downsample2(l), pyr._downsample2(r),
+                        pyr._downsample2(gt))
+        _, Hh, Wh = l.shape
+        Hp, Wp = -(-Hh // 128) * 128, -(-Wh // 128) * 128
+        lp, rp = bg.pad_edge(l, Hp, Wp), bg.pad_edge(r, Hp, Wp).contiguous()
+        if level == n_levels - 1:
+            yield (level, lp, rp, None, None,
+                   int(round(cfg.min_disparity / 2 ** level)), Hh, Wh)
+            continue
+        pred = bg.pad_edge(torch.round(gt / 2 ** level).to(torch.int32)
+                           .clamp(0, Wh - 1), Hp, Wp)
+        q = bg.block_anchors(pred)
+        q_up = q.repeat_interleave(8, 1).repeat_interleave(128, 2)
+        pred_eff = torch.minimum(torch.maximum(pred, q_up - 16),
+                                 q_up + 16).contiguous()
+        yield level, lp, rp, pred_eff, q, -16, Hh, Wh
+
+
+def flagship_pipe(lean=False):
+    """The product's frame: ``bench.py:_flagship_cfg`` on the ideal rig,
+    raw uint8 in, bicubic rectification (the ideal rig's maps are the
+    identity up to float64 rounding), speckle on. Returns (pipe, left,
+    right, scene, cfg, cloud)."""
+    from i3dr_stereo_tpu_torch.config import params
+    from i3dr_stereo_tpu_torch.core import camera
+    from i3dr_stereo_tpu_torch.io.synthetic import layered_scene
+    from i3dr_stereo_tpu_torch.pipeline.stereo_pipeline import StereoPipeline
+
+    cfg = flagship_cfg(params)
+    sc = layered_scene(H_FULL, W_FULL, **SCENE)
+    rig = camera.StereoRig.synthetic(W_FULL, H_FULL, fx=580.0,
+                                     baseline_m=0.3)
+    # fx*T = 174: a 0.5..100 m window keeps disparities 1.7..348 px, so
+    # the depth clamp leaves the scene's 16..200 px whole
+    cloud = params.PointCloudConfig(depth_max=100.0, depth_min=0.5)
+    kw = dict(lean=True) if lean else {}
+    pipe = StereoPipeline(rig, cfg, cloud, device=DEVICE, compute_depth=True,
+                          compute_points=True, compute_crop=True, **kw)
+    check(pipe.rectify_inputs and pipe.config.speckle_size == 100,
+          "the flagship frame must rectify and speckle-filter")
+    left = torch.tensor(raw_u8(sc.left), device=DEVICE)
+    right = torch.tensor(raw_u8(sc.right), device=DEVICE)
+    return pipe, left, right, sc, cfg, cloud
+
+
 # ---------------------------------------------------------------------------
 # phase 3: kernels against their plain twins
 # ---------------------------------------------------------------------------
@@ -280,9 +347,10 @@ def compare_gather(bg, src, idx, q, r, label, stats):
 
 
 def compare_level(sf, bg, cl, cr, *, bpm, H_real, W_real, directions, ur,
-                  pens, label, stats, subpixel=True, time_it=False):
-    """census_cost, every sgm_path direction and sum_wta vs their twins,
-    then the backmatch lookup (row_gather at radius D/2 + 1 around the
+                  pens, label, stats, subpixel=True, time_it=False,
+                  card=""):
+    """census_cost, every sweep of the SGM chain and the sweep that ends
+    in the WTA vs their twins on the same inputs, then the backmatch lookup (row_gather at radius D/2 + 1 around the
     window midpoint) on the level's own right-anchored disparities."""
     D = 32
     C, Cw = sf.census_cost(cl, cr, D, bpm=bpm, H_real=H_real, W_real=W_real)
@@ -299,34 +367,65 @@ def compare_level(sf, bg, cl, cr, *, bpm, H_real, W_real, directions, ur,
     stats["census_cost"]["err"] = max(
         stats["census_cost"]["err"],
         int((C.int() - Cp.int()).abs().max().item()))
+    del Cp, Cwp
 
     dirs = (sf.DIRECTIONS_4 if directions == 4 else sf.DIRECTIONS_8)
     down = [d for d in sf._DOWN if d in dirs]
     up = [d for d in sf._UP if d in dirs]
-    order = [(0, 1), (0, -1)] + down + up
     pen = dict(zip(dirs, pens))
-    parts = []
-    for dy, dx in order:
-        Cd = Cw if (dy, dx) == (0, 1) and Cw is not None else C
-        k = sf.sgm_path(Cd, dy, dx, *pen[(dy, dx)])
-        p = sf.sgm_path_plain(Cd, dy, dx, *pen[(dy, dx)])
+    # the chain as census_sgm_wta runs it: (direction, op)
+    chain = [((0, 1), "i16_new"), ((0, -1), "i16_addf")]
+    if directions == 4:
+        chain += [(down[0], "i16_addi")]
+    else:
+        chain += [(down[0], "f32_new"), (down[1], "f32_add"),
+                  (down[2], "f32_fin"), (up[0], "f32_add"),
+                  (up[1], "f32_add")]
+    clone = lambda t: None if t is None else t.clone()
+    acc16 = acc32 = None
+    plain_ms, inputs = [], []
+    for d, op in chain:
+        Cd = Cw if d == (0, 1) and Cw is not None else C
+        i16 = acc16 if op in sf._READS_16 else None
+        i32 = acc32 if op in sf._READS_32 else None
+        before = (clone(i16), clone(i32))
+        inputs.append((Cd, d, op, before))
+        p, ms = timed(lambda: sf.sgm_sweep_plain(
+            Cd, *d, *pen[d], op, clone(i16), clone(i32)))
+        plain_ms.append(ms)
+        k = sf.sgm_sweep(Cd, *d, *pen[d], op, i16, i32)   # in place
         torch.cuda.synchronize()
-        err = (k - p).abs().max().item()
-        stats["sgm_path"]["err"] = max(stats["sgm_path"]["err"], err)
-        check(torch.equal(k, p),
-              f"{label}: sgm_path {(dy, dx)} differs (max {err})")
-        parts.append(k)
-    d = sf.sum_wta(C, parts, len(down), len(up), subpixel=subpixel,
-                   uniqueness_ratio=ur)
-    dp = sf.sum_wta_plain(C, parts, len(down), len(up), subpixel=subpixel,
-                          uniqueness_ratio=ur)
+        err = (k.double() - p.double()).abs().max().item()
+        stats["sgm_sweep"]["err"] = max(stats["sgm_sweep"]["err"], err)
+        check(k.dtype == p.dtype and torch.equal(k, p),
+              f"{label}: sgm_sweep {op} {d} differs from its twin (max "
+              f"{err})")
+        check(op.endswith("new") or k is (i16 if op.startswith("i16")
+                                          else i32),
+              f"{label}: sgm_sweep {op} did not update its sum in place")
+        if op == "f32_fin":
+            check(torch.equal(i16, before[0]), f"{label}: f32_fin wrote acc16")
+        if op.startswith("i16"):
+            acc16 = k
+        else:
+            acc32 = k
+        del p
+    acc = acc16 if directions == 4 else acc32
+    last = up[-1]
+    wkw = dict(subpixel=subpixel, uniqueness_ratio=ur)
+    dp, wta_plain_ms = timed(lambda: sf.sgm_sweep_wta_plain(
+        C, *last, *pen[last], acc, **wkw))
+    snapshot = acc.clone()
+    d = sf.sgm_sweep_wta(C, *last, *pen[last], acc, **wkw)
     torch.cuda.synchronize()
     v, vp = d > -1e8, dp > -1e8
-    check(torch.equal(v, vp), f"{label}: sum_wta valid masks differ "
+    check(torch.equal(v, vp), f"{label}: sgm_sweep_wta valid masks differ "
           f"({(v != vp).sum().item()} px)")
     err = (d - dp)[v].abs().max().item() if v.any() else 0.0
-    stats["sum_wta"]["err"] = max(stats["sum_wta"]["err"], err)
-    check(err <= TOL_DISP, f"{label}: sum_wta |dd| {err} > {TOL_DISP}")
+    check(err <= TOL_DISP, f"{label}: sgm_sweep_wta |dd| {err} > {TOL_DISP}")
+    check(torch.equal(acc, snapshot), f"{label}: sgm_sweep_wta wrote its sum")
+    del snapshot
+    stats["sgm_sweep_wta"]["err"] = max(stats["sgm_sweep_wta"]["err"], err)
 
     # backmatch lookup as matchers/pyramid.py:_backmatch_check_true makes it
     B, Hp, Wp, _ = C.shape
@@ -337,10 +436,11 @@ def compare_level(sf, bg, cl, cr, *, bpm, H_real, W_real, directions, ur,
     compare_gather(bg, torch.where(v_r, d_r, 1.0e9).contiguous(),
                    torch.round(r_res).to(torch.int32).contiguous(), q,
                    D // 2 + 1, f"{label} backmatch", stats)
-    print(f"{label}: census_cost, {len(order)} sgm_path directions, "
-          f"sum_wta and the radius-{D // 2 + 1} backmatch gather match their "
-          f"twins (valid {v.float().mean().item():.4f}, max |dd| {err})",
-          flush=True)
+    print(f"{label}: census_cost, {len(chain)} sgm_sweep directions "
+          f"({str(acc.dtype)[6:]} sum, max {int(acc.max().item())}), "
+          f"sgm_sweep_wta and the "
+          f"radius-{D // 2 + 1} backmatch gather match their twins (valid "
+          f"{v.float().mean().item():.4f}, max |dd| {err})", flush=True)
 
     if time_it:
         kw = dict(bpm=bpm, H_real=H_real, W_real=W_real)
@@ -355,33 +455,64 @@ def compare_level(sf, bg, cl, cr, *, bpm, H_real, W_real, directions, ur,
         set_bound(stats, "census_cost",
                   2 * cl.numel() * 4 + n * (1 if Cw is None else 3),
                   n * (2 * NW + 1))
-        per_dir = [gpu_ms(lambda o=o: sf.sgm_path(C, *o, *pen[o]))
-                   for o in order]
-        per_dir_plain = [gpu_ms(lambda o=o: sf.sgm_path_plain(C, *o, *pen[o]),
-                                iters=1, warmup=0) for o in order]
-        stats["sgm_path"]["ms"] = sum(per_dir) / len(per_dir)
-        stats["sgm_path"]["plain_ms"] = sum(per_dir_plain) / len(per_dir)
-        # C in, float32 path costs out; ~10 operations per pair
-        set_bound(stats, "sgm_path", 5 * n, 10 * n)
-        print("sgm_path ms per direction " + ", ".join(
-            f"{o}: {a:.3f} (plain {b:.1f})"
-            for o, a, b in zip(order, per_dir, per_dir_plain)), flush=True)
-        wkw = dict(subpixel=subpixel, uniqueness_ratio=ur)
-        stats["sum_wta"]["ms"] = gpu_ms(
-            lambda: sf.sum_wta(C, parts, len(down), len(up), **wkw))
-        stats["sum_wta"]["plain_ms"] = gpu_ms(
-            lambda: sf.sum_wta_plain(C, parts, len(down), len(up), **wkw),
-            iters=1, warmup=0)
-        # C and every float32 partial in, one float32 disparity per pixel
-        # out; one add per partial and ~6 operations of WTA per pair
-        set_bound(stats, "sum_wta", n * (1 + 4 * len(parts)) + 4 * n // D,
-                  n * (len(parts) + 6))
+        time_sweeps(sf, C, acc, inputs, pen, last, wkw, plain_ms,
+                    wta_plain_ms, stats, card)
 
 
-def phase_kernels(stats):
+def time_sweeps(sf, C, acc, inputs, pen, last, wkw, plain_ms, wta_plain_ms,
+                stats, card):
+    """Level 0's 4-path chain: every sweep, the up-sweep with and without
+    the WTA, and the stage. The in-place sweeps are timed on scratch
+    copies of their sums (the values run away over the repeats; the time
+    does not depend on them)."""
+    n = C.numel()
+    k = len(inputs)
+    row = []
+    for Cd, d, op, (b16, b32) in inputs:
+        s16 = None if b16 is None else b16.clone()
+        s32 = None if b32 is None else b32.clone()
+        row.append(gpu_ms(lambda: sf.sgm_sweep(Cd, *d, *pen[d], op, s16,
+                                               s32)))
+    scratch = acc.clone()
+    # the same up direction as a sweep that stores its sum, no WTA
+    row.append(gpu_ms(lambda: sf.sgm_sweep(C, *last, *pen[last], "i16_addi",
+                                           scratch)))
+    row.append(gpu_ms(lambda: sf.sgm_sweep_wta(C, *last, *pen[last], acc,
+                                               **wkw)))
+    print(f"sgm_sweep [{card}] ms: " + ", ".join(
+        f"{op} {d}: {t:.4f}" for (_, d, op, _), t in zip(inputs, row))
+        + f"; up {last} storing its sum {row[k]:.4f}, with the WTA "
+        f"{row[k + 1]:.4f} (x{row[k + 1] / row[k]:.2f})", flush=True)
+    stats["sgm_sweep"]["ms"] = sum(row[:k]) / k
+    stats["sgm_sweep"]["plain_ms"] = sum(plain_ms) / k
+    stats["sgm_sweep_wta"]["ms"] = row[k + 1]
+    stats["sgm_sweep_wta"]["plain_ms"] = wta_plain_ms
+    # per sweep: C in (1 byte a pair), the int16 sum out and, but for the
+    # first, in; ~10 operations a pair. The entry is the chain's mean
+    per_sweep = [n * (1 + 2 + 2 * (op in sf._READS_16))
+                 for _, _, op, _ in inputs]
+    nbytes = sum(per_sweep)
+    set_bound(stats, "sgm_sweep", nbytes / k, 10 * n)
+    print("sgm_sweep bounds: " + ", ".join(
+        f"{op} {b / 1e9:.3f} GB {b / PEAK_BYTES_S * 1e3:.4f} ms "
+        f"({b / PEAK_BYTES_S * 1e3 / t:.0%} of it reached)"
+        for (_, _, op, _), b, t in zip(inputs, per_sweep, row)), flush=True)
+    # C and the int16 sum in, one float32 disparity a pixel out; the
+    # recurrence, one add and ~6 operations of WTA a pair
+    wta_bytes = n * 3 + 4 * n // 32
+    set_bound(stats, "sgm_sweep_wta", wta_bytes, 17 * n)
+    stage = sum(row[:k]) + row[k + 1]
+    stage_bytes = nbytes + wta_bytes
+    print(f"SGM stage at level 0 [{card}]: {k} sweeps + the sweep with the "
+          f"WTA {stage:.4f} ms for {stage_bytes / 1e9:.3f} GB moved once "
+          f"({stage_bytes / PEAK_BYTES_S * 1e3:.4f} ms at the HBM peak, "
+          f"{stage_bytes / stage / 1e6:.1f} GB/s reached); twins "
+          f"{sum(plain_ms) + wta_plain_ms:.1f} ms", flush=True)
+
+
+def phase_kernels(stats, card):
     from i3dr_stereo_tpu_torch.config import params
     from i3dr_stereo_tpu_torch.io.synthetic import layered_scene
-    from i3dr_stereo_tpu_torch.matchers import pyramid as pyr
     from i3dr_stereo_tpu_torch.ops import block_gather as bg
     from i3dr_stereo_tpu_torch.ops import sgm_fused_t as sf
     from i3dr_stereo_tpu_torch.ops.census import census_transform
@@ -401,55 +532,39 @@ def phase_kernels(stats):
     compare_gather(bg, src, idx, q, 17, "random idx/q", stats)
     print("row_gather (random idx/q, both clamps): bit-equal", flush=True)
 
-    # every level of the flagship pyramid at its own shape (padded to
-    # multiples of 128, ragged W_real/H_real), built as pyramid_sgm_match
-    # builds it; the prediction that warps the right view is the
-    # downsampled ground truth, clamped to its block anchors
-    sc = layered_scene(H_FULL, W_FULL, **SCENE)
-    l = torch.tensor(sc.left, device=dev)[None]
-    r = torch.tensor(sc.right, device=dev)[None]
-    gt = torch.tensor(sc.disparity, device=dev)[None]
-    n_levels = cfg.max_pyramid_level
     pens = [(cfg.p1, cfg.p2)] * 4
-    for level in range(n_levels):
-        if level:
-            l, r, gt = (pyr._downsample2(l), pyr._downsample2(r),
-                        pyr._downsample2(gt))
-        _, Hh, Wh = l.shape
-        Hp, Wp = -(-Hh // 128) * 128, -(-Wh // 128) * 128
-        lp, rp = bg.pad_edge(l, Hp, Wp), bg.pad_edge(r, Hp, Wp)
-        if level == n_levels - 1:
-            # the coarsest level searches from the minimum disparity
-            bpm = int(round(cfg.min_disparity / 2 ** level))
-            rw = rp
-        else:
-            pred = bg.pad_edge(torch.round(gt / 2 ** level).to(torch.int32)
-                               .clamp(0, Wh - 1), Hp, Wp)
-            q = bg.block_anchors(pred)
-            q_up = q.repeat_interleave(8, 1).repeat_interleave(128, 2)
-            pred_eff = torch.minimum(torch.maximum(pred, q_up - 16),
-                                     q_up + 16).contiguous()
-            rp = rp.contiguous()
-            rw = compare_gather(bg, rp, pred_eff, q, 16, f"level {level} warp",
-                                stats)
-            bpm = -16
-            if level == 0:
-                stats["row_gather"]["ms"] = gpu_ms(
-                    lambda: bg.block_shift_gather(rp, pred_eff, q, 16))
-                stats["row_gather"]["plain_ms"] = gpu_ms(
-                    lambda: bg.block_shift_gather_plain(rp, pred_eff, q, 16),
-                    iters=1, warmup=0)
-                # source, index and anchors in, the gathered image out
-                set_bound(stats, "row_gather",
-                          12 * rp.numel() + 4 * q.numel(), 6 * rp.numel())
-                # the one PyTorch call: gather with the clamped column
-                # index made beforehand
-                col = (torch.arange(Wp, dtype=torch.int32, device=dev)
-                       - pred_eff).clamp(0, Wp - 1).long()
-                check(torch.equal(torch.gather(rp, 2, col), rw),
-                      "torch.gather differs from row_gather")
-                stats["row_gather"]["library_ms"] = gpu_ms(
-                    lambda: torch.gather(rp, 2, col))
+    sc = layered_scene(H_FULL, W_FULL, **SCENE)
+    for level, lp, rp, pred_eff, q, bpm, Hh, Wh in flagship_levels(cfg, sc):
+        Hp, Wp = lp.shape[-2:]
+        rw = rp
+        if pred_eff is not None:
+            rw = compare_gather(bg, rp, pred_eff, q, 16,
+                                f"level {level} warp", stats)
+        if level == 0:
+            stats["row_gather"]["ms"] = gpu_ms(
+                lambda: bg.block_shift_gather(rp, pred_eff, q, 16))
+            stats["row_gather"]["plain_ms"] = gpu_ms(
+                lambda: bg.block_shift_gather_plain(rp, pred_eff, q, 16),
+                iters=1, warmup=0)
+            # source, index and anchors in, the gathered image out
+            set_bound(stats, "row_gather",
+                      12 * rp.numel() + 4 * q.numel(), 6 * rp.numel())
+            # the same function in PyTorch calls: anchor lookup, both
+            # clamps, x - e, gather; and the gather alone on a ready index
+            xs = torch.arange(Wp, dtype=torch.int32, device=dev)
+
+            def gather_whole():
+                qq = q.repeat_interleave(8, 1).repeat_interleave(128, 2)
+                e = torch.minimum(torch.maximum(pred_eff, qq - 16), qq + 16)
+                return torch.gather(rp, 2, (xs - e).clamp(0, Wp - 1).long())
+
+            col = (xs - pred_eff).clamp(0, Wp - 1).long()
+            check(torch.equal(gather_whole(), rw)
+                  and torch.equal(torch.gather(rp, 2, col), rw),
+                  "torch.gather differs from row_gather")
+            stats["row_gather"]["library_ms"] = gpu_ms(gather_whole)
+            stats["row_gather"]["library_ready_index_ms"] = gpu_ms(
+                lambda: torch.gather(rp, 2, col))
         compare_level(
             sf, bg, census_transform(lp, cfg.census_height, cfg.census_width),
             census_transform(rw, cfg.census_height, cfg.census_width),
@@ -457,7 +572,7 @@ def phase_kernels(stats):
             ur=cfg.uniqueness_ratio, pens=pens,
             label=f"level {level} {Wh}x{Hh} in {Wp}x{Hp} D=32 bpm={bpm}",
             stats=stats, subpixel=(level == 0 and cfg.subpixel),
-            time_it=(level == 0))
+            time_it=(level == 0), card=card)
 
     # small ragged shapes, both signs of bpm, 4 and 8 paths, uniqueness
     # on, and a 17x17 census against the negated image (distances up to
@@ -634,27 +749,13 @@ def phase_speckle(stats, sc, cfg):
 # ---------------------------------------------------------------------------
 
 def phase_main_path(stats, card):
-    from i3dr_stereo_tpu_torch.config import params
     from i3dr_stereo_tpu_torch.core import camera
     from i3dr_stereo_tpu_torch.io.synthetic import layered_scene
     from i3dr_stereo_tpu_torch.matchers.pyramid import pyramid_sgm_match
     from i3dr_stereo_tpu_torch.pipeline.stereo_pipeline import StereoPipeline
 
-    cfg = flagship_cfg(params)
-    sc = layered_scene(H_FULL, W_FULL, **SCENE)
-    rig = camera.StereoRig.synthetic(W_FULL, H_FULL, fx=580.0,
-                                     baseline_m=0.3)
-    # fx*T = 174: a 0.5..100 m window keeps disparities 1.7..348 px, so
-    # the depth clamp leaves the scene's 16..200 px whole
-    cloud = params.PointCloudConfig(depth_max=100.0, depth_min=0.5)
-    # the product's frame: raw uint8 in, bicubic rectification (the
-    # ideal rig's maps are the identity up to float64 rounding), speckle on
-    pipe = StereoPipeline(rig, cfg, cloud, device=DEVICE, compute_depth=True,
-                          compute_points=True, compute_crop=True)
-    check(pipe.rectify_inputs and pipe.config.speckle_size == 100,
-          "the main path must rectify and speckle-filter")
-    left = torch.tensor(raw_u8(sc.left), device=DEVICE)
-    right = torch.tensor(raw_u8(sc.right), device=DEVICE)
+    pipe, left, right, sc, cfg, cloud = flagship_pipe()
+    rig = pipe.rig
 
     res = drive_frame(pipe, left, right, sc, FLAGSHIP_KERNELS, "main path",
                       stats, record=FLAGSHIP_KERNELS)
@@ -1222,23 +1323,10 @@ def check_twins(mk, mp, label):
 
 
 def phase_lean_flagship(stats, card):
-    from i3dr_stereo_tpu_torch.config import params
-    from i3dr_stereo_tpu_torch.core import camera
     from i3dr_stereo_tpu_torch.io.synthetic import layered_scene
     from i3dr_stereo_tpu_torch.matchers.pyramid import pyramid_sgm_match
-    from i3dr_stereo_tpu_torch.pipeline.stereo_pipeline import StereoPipeline
 
-    cfg = flagship_cfg(params)
-    sc = layered_scene(H_FULL, W_FULL, **SCENE)
-    rig = camera.StereoRig.synthetic(W_FULL, H_FULL, fx=580.0,
-                                     baseline_m=0.3)
-    cloud = params.PointCloudConfig(depth_max=100.0, depth_min=0.5)
-    pipe = StereoPipeline(rig, cfg, cloud, device=DEVICE, compute_depth=True,
-                          compute_points=True, compute_crop=True, lean=True)
-    check(pipe.rectify_inputs and pipe.config.speckle_size == 100,
-          "the lean flagship frame must rectify and speckle-filter")
-    left = torch.tensor(raw_u8(sc.left), device=DEVICE)
-    right = torch.tensor(raw_u8(sc.right), device=DEVICE)
+    pipe, left, right, sc, cfg, _ = flagship_pipe(lean=True)
     torch.cuda.reset_peak_memory_stats()
     res = drive_frame(pipe, left, right, sc, LEAN_FLAGSHIP_KERNELS,
                       "lean flagship frame", stats,
@@ -1391,7 +1479,7 @@ def main() -> int:
     stats = {k: {"err": 0.0, "ms": None, "plain_ms": None, "launches": 0,
                  "bound_ms": None, "bound_by": None, "library_ms": None}
              for k in SOURCES}
-    phase_kernels(stats)
+    phase_kernels(stats, card)
     phase_profile(*phase_main_path(stats, card), card)
     phase_volume(stats)
     phase_profile(*phase_sgbm(stats, card), card, label="SGBM")
@@ -1414,7 +1502,9 @@ def main() -> int:
                 "max_abs_err": s["err"], "ms": s["ms"],
                 "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                 "bound_by": s["bound_by"], "bound_bytes": s["bound_bytes"],
-                "library_ms": s["library_ms"]} for k, s in stats.items()]
+                "library_ms": s["library_ms"],
+                **{x: s[x] for x in s if x.startswith("library_ready")}}
+               for k, s in stats.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -36,8 +36,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 # kernel name -> launches since the last reset_launches()
-LAUNCHES = {"census_cost": 0, "sgm_path": 0, "sum_wta": 0, "row_gather": 0,
-            "remap": 0, "speckle_ccl": 0, "sgm_volume": 0,
+LAUNCHES = {"census_cost": 0, "sgm_sweep": 0, "sgm_sweep_wta": 0,
+            "row_gather": 0, "remap": 0, "speckle_ccl": 0, "sgm_volume": 0,
             "sgm_volume_sum": 0, "fused_census_fwd": 0, "fused_bt_fwd": 0}
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
@@ -46,11 +46,13 @@ _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlon
 _SIGNATURES = {
     # cl, cr, C, Cw (or null), B, H, W, NW, D, bpm, H_real, W_real, stream
     "i3dr_census_cost": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
-    # C, wide (C is int16), out, B, H, W, dy, dx, p1, p2, stream
-    "i3dr_sgm_path": (_P, _I, _P, _I, _I, _I, _I, _I, _F, _F, _P),
-    # C, parts (host array of device pointers), n_down, n_up, disp,
-    # n_pix, subpixel, uniqueness_ratio, stream
-    "i3dr_sum_wta": (_P, _P, _I, _I, _P, _L, _I, _F, _P),
+    # C, wide (C is int16), op, acc16 (or null), acc32 (or null), B, H, W,
+    # dy, dx, p1, p2, stream
+    "i3dr_sgm_sweep": (_P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P),
+    # C, acc, acc is float32, disp, B, H, W, dy, dx, p1, p2, subpixel,
+    # uniqueness_ratio, stream
+    "i3dr_sgm_sweep_wta": (_P, _P, _I, _P, _I, _I, _I, _I, _I, _F, _F, _I,
+                           _F, _P),
     # src, idx, q, out, B, H, W, Hq, Wq, radius, stream
     "i3dr_row_gather": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # src, src_u8, flat_idx, wx, wy, out, B, H, W, src_h, src_w, pad, taps,

@@ -12,7 +12,7 @@
 // unclamped value (sgm_fused_t.py:138-141) while every other direction
 // reads C. For that case the wrapper passes a second output Cw, int16
 // (B, H, W, D): the unclamped distance, -1 for an invalid source column,
-// 0 on padding; sgm_path reads it for direction (0, 1). Cw is null for
+// 0 on padding; sgm_sweep reads it for direction (0, 1). Cw is null for
 // narrower windows, where nothing extra is written.
 //
 // Layout (B, H, W, D), D contiguous: one thread per (pixel, d), so the 32

@@ -1,9 +1,9 @@
 // Shared constants and warp reductions of the port's kernels.
 //
-// The SGM kernels put the D = 32 disparities of one pixel on the 32
-// lanes of one warp (PAPERS.md [1], arXiv 1610.04121): min over d is a
-// butterfly of shuffles, and the d-1 / d+1 neighbours of the recurrence
-// are one shuffle up / down.
+// The SGM kernels put the disparities of one pixel on the lanes of a warp,
+// or of an aligned group of its lanes (PAPERS.md [1], arXiv 1610.04121):
+// min over d is a butterfly of shuffles, and the d-1 / d+1 neighbours of
+// the recurrence are one shuffle up / down.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -18,16 +18,17 @@ constexpr int SENTINEL = 255;       // uint8 cost of an invalid pairing
 constexpr int WARP = 32;            // = D, disparities per pixel
 constexpr unsigned FULL = 0xffffffffu;
 
-__device__ __forceinline__ float warp_min(float v) {
+// min over each aligned group of LANES lanes (a power of two)
+template <int LANES>
+__device__ __forceinline__ float lanes_min(float v) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fminf(v, __shfl_xor_sync(FULL, v, o));
+  for (int o = LANES / 2; o > 0; o >>= 1)
+    v = fminf(v, __shfl_xor_sync(FULL, v, o));
   return v;
 }
 
-__device__ __forceinline__ int warp_min(int v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = min(v, __shfl_xor_sync(FULL, v, o));
-  return v;
+__device__ __forceinline__ float warp_min(float v) {
+  return lanes_min<WARP>(v);
 }
 
 }  // namespace i3dr

@@ -28,7 +28,7 @@
 //     each total becomes trunc(min(total, 10000)), and S is their int32
 //     sum.
 //
-// Design: one warp per scanline (sgm_path.cu's design, generalised). Each
+// Design: one warp per scanline, lane = disparity, generalised. Each
 // lane holds K = ceil(D/32) (1, 2, 4, 8, 12 or 16) consecutive
 // disparities of the carry in registers, so d-1 / d+1 cross lanes only
 // at a lane's two ends (one shuffle each); min_d is an in-lane min and

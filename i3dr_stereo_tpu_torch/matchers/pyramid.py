@@ -17,7 +17,8 @@ level searches from the configured minimum disparity. Per level:
    (8x128)-block anchor (``block_shift_gather``, the ``row_gather``
    kernel);
 3. census both, then ``census_sgm_wta`` (kernels ``census_cost``,
-   ``sgm_path``, ``sum_wta``);
+   ``sgm_sweep`` three times, ``sgm_sweep_wta``: a running int16 sum
+   updated in place, the WTA inside the last sweep);
 4. true backmatching against the right-anchored WTA of the same cost
    volume, looked up with ``block_shift_gather``;
 5. where the level has it (level 0 under :func:`profile_from_config`),

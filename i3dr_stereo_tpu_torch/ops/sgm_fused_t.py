@@ -2,36 +2,44 @@
 core (torch port of ``i3dr_stereo_tpu.ops.sgm_fused_t``).
 
 The TPU runs this as four Pallas kernels on a transposed layout
-(disparity on sublanes, image rows on lanes, a reversed right plane).
-The port uses the layout of the work — (B, H, W, D) with D = 32
-contiguous, one warp per pixel or scanline and one lane per disparity —
-and three CUDA kernels (``csrc/``):
+(disparity on sublanes, image rows on lanes, a reversed right plane)
+that hand an int16 running sum from sweep to sweep and do the WTA inside
+the last one. The port keeps that chain and uses the layout of the work
+— (B, H, W, D) with D = 32 contiguous — in three CUDA kernels
+(``csrc/``):
 
 - ``census_cost``: the uint8 residual-window hamming cost volume C
   (cost half of the TPU's ``_fwd_kernel``);
-- ``sgm_path``: one path direction per launch (the sweeps of
-  ``_fwd_kernel``, ``_rev_kernel``, ``_vdown_kernel``,
-  ``_vup_wta_kernel``), each writing its clamped float32 path costs;
-- ``sum_wta``: the direction sum with the TPU's int16 truncation points
-  rebuilt exactly, then the WTA (WTA half of ``_vup_wta_kernel``).
+- ``sgm_sweep``: one path direction per launch, folded into the running
+  sum of the directions (the sweeps and stores of ``_fwd_kernel``,
+  ``_rev_kernel`` and ``_vdown_kernel``). No per-direction volume is
+  written;
+- ``sgm_sweep_wta``: the last direction, added to the running sum in
+  registers, and the WTA on it (``_vup_wta_kernel``): the summed volume
+  never reaches memory.
+
+The running sum is **updated in place** (the JAX side is pure and returns
+a new array per kernel): a sweep reads and writes each element once, at
+its own step, so ``acc16`` / ``acc32`` are overwritten and returned.
 
 Each kernel has a plain torch twin here (``*_plain``). The public
 wrapper takes the twin for a CPU tensor and the kernel for a CUDA tensor
-(or raises) — nothing falls back. :func:`census_sgm_wta` chains the
-three; its ``plain=True`` runs the twins on any device (the reference
-run of ``chip_smoke.py``).
+(or raises) — nothing falls back. :func:`census_sgm_wta` chains them;
+its ``plain=True`` runs the twins on any device (the reference run of
+``chip_smoke.py``). ``sgm_path_plain`` and ``sum_wta_plain`` are what
+the sweep twins are built from: one direction's clamped path costs as a
+float32 volume, and the sum of such volumes with the TPU's truncation
+points followed by the WTA.
 
 Semantics equal ``census_sgm_wta_t`` bit for bit (tests hold them to it)
 for every census window the config allows. C holds min(ham, 254); with
 more than 254 census bits (17x17) the TPU's forward-horizontal sweep
 recurs on the unclamped distance, so ``census_cost`` then also returns an
-int16 unclamped plane and the (0, 1) path reads it. At 9x9 nothing extra
+int16 unclamped plane and the (0, 1) sweep reads it. At 9x9 nothing extra
 is allocated or launched.
 """
 
 from __future__ import annotations
-
-import ctypes
 
 import torch
 
@@ -137,8 +145,22 @@ def census_cost(cl: torch.Tensor, cr: torch.Tensor, D: int, *, bpm: int,
 
 
 # ---------------------------------------------------------------------------
-# sgm_path
+# the sweeps
 # ---------------------------------------------------------------------------
+
+# what a sweep does with t = min(L, 10000) of its direction (the numbers
+# are csrc/sgm_sweep.cuh's SweepOp)
+SWEEP_OPS = {
+    "i16_new": 0,    # returns a new int16 sum: int(t)
+    "i16_addf": 1,   # acc16 = int(t + float(acc16))
+    "i16_addi": 2,   # acc16 = acc16 + int(t)
+    "f32_new": 3,    # returns a new float32 sum: t
+    "f32_add": 4,    # acc32 = acc32 + t
+    "f32_fin": 5,    # acc32 = float(acc16 + int(acc32 + t))
+}
+_READS_16 = ("i16_addf", "i16_addi", "f32_fin")
+_READS_32 = ("f32_add", "f32_fin")
+
 
 def _check_cost(C, wide_ok=False):
     if C.ndim != 4 or not (C.dtype == torch.uint8
@@ -146,6 +168,29 @@ def _check_cost(C, wide_ok=False):
         raise ValueError(f"C must be uint8 (B, H, W, D)"
                          f"{' or int16' if wide_ok else ''}, got "
                          f"{tuple(C.shape)} {C.dtype}")
+
+
+def _check_sweep(C, op, acc16, acc32):
+    if op not in SWEEP_OPS:
+        raise ValueError(f"op must be one of {tuple(SWEEP_OPS)}, got {op!r}")
+    _check_cost(C, wide_ok=(op == "i16_new"))
+    for acc, dtype, users in ((acc16, torch.int16, _READS_16),
+                              (acc32, torch.float32, _READS_32)):
+        if (acc is not None) != (op in users):
+            raise ValueError(f"op {op!r} takes "
+                             f"{'an' if op in users else 'no'} "
+                             f"{str(dtype)[6:]} running sum")
+        if acc is not None and (acc.shape != C.shape or acc.dtype != dtype):
+            raise ValueError(f"the running sum must be {str(dtype)[6:]} "
+                             f"shaped like C, got {tuple(acc.shape)} "
+                             f"{acc.dtype}")
+
+
+def _check_acc(C, acc):
+    _check_cost(C)
+    if acc.shape != C.shape or acc.dtype not in (torch.int16, torch.float32):
+        raise ValueError(f"the running sum must be int16 or float32 shaped "
+                         f"like C, got {tuple(acc.shape)} {acc.dtype}")
 
 
 def _step(prev, c, p1, p2):
@@ -161,10 +206,13 @@ def _step(prev, c, p1, p2):
 
 def sgm_path_plain(C: torch.Tensor, dy: int, dx: int, p1,
                    p2) -> torch.Tensor:
-    """Plain torch twin of the ``sgm_path`` kernel: a Python loop over
-    the scan axis, vectorised across the perpendicular extent. Diagonal
-    paths shift the carry one column per row with a zero entering
-    column (the TPU's ``_shift_carry``)."""
+    """Path costs of direction (dy, dx) (the path comes from (y-dy,
+    x-dx)) as a float32 (B, H, W, D) volume ``min(L, 10000)``, in plain
+    torch: a Python loop over the scan axis, vectorised across the
+    perpendicular extent. ``C`` is the uint8 volume (255 = invalid) or
+    census_cost's int16 unclamped plane (negative = invalid). Diagonal
+    paths shift the carry one column per row with a zero entering column
+    (the TPU's ``_shift_carry``)."""
     _check_cost(C, wide_ok=True)
     B, H, W, D = C.shape
     p1, p2 = _f32(p1, C.device), _f32(p2, C.device)
@@ -188,55 +236,72 @@ def sgm_path_plain(C: torch.Tensor, dy: int, dx: int, p1,
     return out
 
 
-def sgm_path(C: torch.Tensor, dy: int, dx: int, p1, p2) -> torch.Tensor:
-    """Path costs of direction (dy, dx) (the path comes from (y-dy,
-    x-dx)): float32 (B, H, W, D) ``min(L, 10000)``. ``C`` is the uint8
-    volume (255 = invalid) or census_cost's int16 unclamped plane
-    (negative = invalid). P1/P2 are runtime scalars. A CPU tensor takes
-    the plain version; a CUDA tensor launches the kernel (or raises)."""
+def sgm_sweep_plain(C: torch.Tensor, dy: int, dx: int, p1, p2, op: str,
+                    acc16: torch.Tensor | None = None,
+                    acc32: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain torch twin of the ``sgm_sweep`` kernel (in place, as it)."""
+    _check_sweep(C, op, acc16, acc32)
+    t = sgm_path_plain(C, dy, dx, p1, p2)
+    if op == "i16_new":
+        return t.to(torch.int32).to(torch.int16)
+    if op == "f32_new":
+        return t
+    if op == "f32_add":
+        return acc32.add_(t)
+    if op == "f32_fin":
+        return acc32.copy_(acc16.to(torch.int32)
+                           + (acc32 + t).to(torch.int32))
+    if op == "i16_addf":
+        new = (t + acc16.to(torch.float32)).to(torch.int32)
+    else:
+        new = acc16.to(torch.int32) + t.to(torch.int32)
+    return acc16.copy_(new)
+
+
+def sgm_sweep(C: torch.Tensor, dy: int, dx: int, p1, p2, op: str,
+              acc16: torch.Tensor | None = None,
+              acc32: torch.Tensor | None = None) -> torch.Tensor:
+    """One path direction (dy, dx) folded into the running sum of the
+    directions; returns the sum it wrote.
+
+    With L the path costs of the direction (zero carry where a path
+    enters; P1/P2 runtime scalars) and t = min(L, 10000), ``op`` is one of
+    :data:`SWEEP_OPS`: ``i16_new`` / ``f32_new`` return a new (B, H, W, D)
+    sum; the others **overwrite** the running sum they are given
+    (``acc16`` int16, ``acc32`` float32) and return it. ``int`` truncates,
+    as the TPU's int16 stores do. ``C`` is the uint8 volume (255 =
+    invalid) or, for ``i16_new`` only, census_cost's int16 unclamped plane
+    (negative = invalid). A CPU tensor takes the plain version; a CUDA
+    tensor launches the kernel (or raises)."""
     if C.device.type == "cpu":
-        return sgm_path_plain(C, dy, dx, p1, p2)
-    _check_cost(C, wide_ok=True)
-    _build.require_cuda(C)
+        return sgm_sweep_plain(C, dy, dx, p1, p2, op, acc16, acc32)
+    _check_sweep(C, op, acc16, acc32)
+    _build.require_cuda(C, *(a for a in (acc16, acc32) if a is not None))
     B, H, W, D = C.shape
     _require_warp_d(D)
-    out = torch.empty(C.shape, dtype=torch.float32, device=C.device)
-    _build.launch("i3dr_sgm_path", "sgm_path", C.device,
-                  C.data_ptr(), int(C.dtype == torch.int16), out.data_ptr(),
+    if op == "i16_new":
+        acc16 = torch.empty(C.shape, dtype=torch.int16, device=C.device)
+    elif op == "f32_new":
+        acc32 = torch.empty(C.shape, dtype=torch.float32, device=C.device)
+    _build.launch("i3dr_sgm_sweep", "sgm_sweep", C.device,
+                  C.data_ptr(), int(C.dtype == torch.int16), SWEEP_OPS[op],
+                  None if acc16 is None else acc16.data_ptr(),
+                  None if acc32 is None else acc32.data_ptr(),
                   B, H, W, int(dy), int(dx), float(p1), float(p2),
                   _build.stream_of(C))
-    return out
+    return acc16 if op.startswith("i16") else acc32
 
 
 # ---------------------------------------------------------------------------
-# sum_wta
+# the WTA, and the sweep that ends in it
 # ---------------------------------------------------------------------------
 
-def _check_parts(C, parts, n_down, n_up):
-    _check_cost(C)
-    if n_down < 1 or n_up < 1 or len(parts) != 2 + n_down + n_up:
-        raise ValueError(f"expected fwd, rev, {n_down} down and {n_up} up "
-                         f"path outputs, got {len(parts)}")
-    for p in parts:
-        if p.shape != C.shape or p.dtype != torch.float32:
-            raise ValueError("path outputs must be float32 shaped like C")
-
-
-def sum_wta_plain(C: torch.Tensor, parts, n_down: int, n_up: int, *,
-                  subpixel: bool, uniqueness_ratio=0.0) -> torch.Tensor:
-    """Plain torch twin of the ``sum_wta`` kernel."""
-    _check_parts(C, parts, n_down, n_up)
+def _wta_plain(C: torch.Tensor, S: torch.Tensor, subpixel: bool,
+               uniqueness_ratio) -> torch.Tensor:
+    """WTA of the float32 sums S -> (B, H, W) disparity, NODATA where
+    invalid."""
     D = C.shape[-1]
     dev = C.device
-    s_fwd = parts[0].to(torch.int32)
-    s_h = (parts[1] + s_fwd.to(torch.float32)).to(torch.int32)
-    down = parts[2]
-    for k in range(1, n_down):
-        down = down + parts[2 + k]
-    S = (s_h + down.to(torch.int32)).to(torch.float32)
-    for k in range(n_up):
-        S = S + parts[2 + n_down + k]
-
     iota = torch.arange(D, dtype=torch.int32, device=dev)
     m = S.min(-1, keepdim=True).values
     db = torch.where(S == m, iota, D).min(-1, keepdim=True).values
@@ -258,32 +323,68 @@ def sum_wta_plain(C: torch.Tensor, parts, n_down: int, n_up: int, *,
     return torch.where(valid, disp, NODATA)[..., 0]
 
 
-def sum_wta(C: torch.Tensor, parts, n_down: int, n_up: int, *,
-            subpixel: bool, uniqueness_ratio=0.0) -> torch.Tensor:
-    """Direction sum + WTA -> float32 (B, H, W) residual disparity,
-    NODATA (-1e9) where invalid.
+def sum_wta_plain(C: torch.Tensor, parts, n_down: int, n_up: int, *,
+                  subpixel: bool, uniqueness_ratio=0.0) -> torch.Tensor:
+    """The whole direction sum and WTA from per-direction volumes, in
+    plain torch: what the chain of sweeps computes, written the long way.
 
-    ``parts``: the ``sgm_path`` outputs in the order fwd (0, 1), rev
-    (0, -1), the down directions, the up directions. The sum rebuilds
-    the TPU's int16 stores: S_fwd = int(fwd), S_h = int(rev + S_fwd),
-    S_down = int(sum of downs), S = float(S_h + S_down) + each up. The
-    argmin takes the first minimum; a pixel is valid iff m < 9999, some
-    cost is below the sentinel and (uniqueness_ratio > 0 only) the best
-    cost beyond |d - db| > 1 clears the margin. Parabolic subpixel on
+    ``parts``: ``sgm_path_plain`` outputs in the order fwd (0, 1), rev
+    (0, -1), the down directions, the up directions. The sum has the
+    TPU's int16 stores: S_fwd = int(fwd), S_h = int(rev + S_fwd),
+    S_down = int(sum of downs), S = float(S_h + S_down) + each up."""
+    _check_cost(C)
+    if n_down < 1 or n_up < 1 or len(parts) != 2 + n_down + n_up:
+        raise ValueError(f"expected fwd, rev, {n_down} down and {n_up} up "
+                         f"path outputs, got {len(parts)}")
+    for p in parts:
+        if p.shape != C.shape or p.dtype != torch.float32:
+            raise ValueError("path outputs must be float32 shaped like C")
+    s_fwd = parts[0].to(torch.int32)
+    s_h = (parts[1] + s_fwd.to(torch.float32)).to(torch.int32)
+    down = parts[2]
+    for k in range(1, n_down):
+        down = down + parts[2 + k]
+    S = (s_h + down.to(torch.int32)).to(torch.float32)
+    for k in range(n_up):
+        S = S + parts[2 + n_down + k]
+    return _wta_plain(C, S, subpixel, uniqueness_ratio)
+
+
+def sgm_sweep_wta_plain(C: torch.Tensor, dy: int, dx: int, p1, p2,
+                        acc: torch.Tensor, *, subpixel: bool,
+                        uniqueness_ratio=0.0) -> torch.Tensor:
+    """Plain torch twin of the ``sgm_sweep_wta`` kernel."""
+    _check_acc(C, acc)
+    S = acc.to(torch.float32) + sgm_path_plain(C, dy, dx, p1, p2)
+    return _wta_plain(C, S, subpixel, uniqueness_ratio)
+
+
+def sgm_sweep_wta(C: torch.Tensor, dy: int, dx: int, p1, p2,
+                  acc: torch.Tensor, *, subpixel: bool,
+                  uniqueness_ratio=0.0) -> torch.Tensor:
+    """The last direction and the WTA: S = float(acc) + min(L, 10000) of
+    direction (dy, dx), then per pixel the float32 (B, H, W) residual
+    disparity, NODATA (-1e9) where invalid. ``acc`` is the running sum of
+    the other directions, int16 (4 paths) or float32 (8 paths); it is
+    only read.
+
+    The argmin takes the first minimum; a pixel is valid iff m < 9999,
+    some cost is below the sentinel and (uniqueness_ratio > 0 only) the
+    best sum beyond |d - db| > 1 clears the margin. Parabolic subpixel on
     interior disparities, clipped to +-0.5. A CPU tensor takes the plain
     version; a CUDA tensor launches the kernel (or raises)."""
     if C.device.type == "cpu":
-        return sum_wta_plain(C, parts, n_down, n_up, subpixel=subpixel,
-                             uniqueness_ratio=uniqueness_ratio)
-    _check_parts(C, parts, n_down, n_up)
-    _build.require_cuda(C, *parts)
+        return sgm_sweep_wta_plain(C, dy, dx, p1, p2, acc, subpixel=subpixel,
+                                   uniqueness_ratio=uniqueness_ratio)
+    _check_acc(C, acc)
+    _build.require_cuda(C, acc)
     B, H, W, D = C.shape
     _require_warp_d(D)
     disp = torch.empty((B, H, W), dtype=torch.float32, device=C.device)
-    ptrs = (ctypes.c_void_p * len(parts))(*(p.data_ptr() for p in parts))
-    _build.launch("i3dr_sum_wta", "sum_wta", C.device,
-                  C.data_ptr(), ctypes.cast(ptrs, ctypes.c_void_p), n_down,
-                  n_up, disp.data_ptr(), B * H * W, int(bool(subpixel)),
+    _build.launch("i3dr_sgm_sweep_wta", "sgm_sweep_wta", C.device,
+                  C.data_ptr(), acc.data_ptr(),
+                  int(acc.dtype == torch.float32), disp.data_ptr(), B, H, W,
+                  int(dy), int(dx), float(p1), float(p2), int(bool(subpixel)),
                   float(uniqueness_ratio), _build.stream_of(C))
     return disp
 
@@ -305,17 +406,28 @@ def census_sgm_wta(cl: torch.Tensor, cr: torch.Tensor, D: int, *, bpm: int,
     """
     dirs = DIRECTIONS_4 if directions == 4 else DIRECTIONS_8
     pen = {d: (pens[i][0], pens[i][1]) for i, d in enumerate(dirs)}
-    cost, path, wta = ((census_cost_plain, sgm_path_plain, sum_wta_plain)
-                       if plain else (census_cost, sgm_path, sum_wta))
+    cost, sweep, wta = (
+        (census_cost_plain, sgm_sweep_plain, sgm_sweep_wta_plain) if plain
+        else (census_cost, sgm_sweep, sgm_sweep_wta))
 
     C, Cw = cost(cl, cr, D, bpm=bpm, H_real=H_real, W_real=W_real)
     down = [d for d in _DOWN if d in dirs]
     up = [d for d in _UP if d in dirs]
-    order = [(0, 1), (0, -1)] + down + up
     # the forward sweep recurs on the unclamped distance where one exists
-    parts = [path(Cw if (dy, dx) == (0, 1) and Cw is not None else C,
-                  dy, dx, *pen[(dy, dx)]) for dy, dx in order]
-    disp = wta(C, parts, len(down), len(up), subpixel=subpixel,
+    acc = sweep(C if Cw is None else Cw, 0, 1, *pen[(0, 1)], "i16_new")
+    sweep(C, 0, -1, *pen[(0, -1)], "i16_addf", acc)
+    if len(down) == 1:
+        sweep(C, *down[0], *pen[down[0]], "i16_addi", acc)
+    else:
+        # several directions a group: summed in float32, truncated once
+        acc32 = sweep(C, *down[0], *pen[down[0]], "f32_new")
+        for d in down[1:-1]:
+            sweep(C, *d, *pen[d], "f32_add", acc32=acc32)
+        sweep(C, *down[-1], *pen[down[-1]], "f32_fin", acc, acc32)
+        for d in up[:-1]:
+            sweep(C, *d, *pen[d], "f32_add", acc32=acc32)
+        acc = acc32
+    disp = wta(C, *up[-1], *pen[up[-1]], acc, subpixel=subpixel,
                uniqueness_ratio=uniqueness_ratio)
     return disp, C
 

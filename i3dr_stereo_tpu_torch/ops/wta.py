@@ -9,7 +9,7 @@ selection semantics:
   clipped to +-0.5, for interior d only.
 
 Plain torch on every device. The flagship's WTA is fused into the
-``sum_wta`` kernel (:mod:`i3dr_stereo_tpu_torch.ops.sgm_fused_t`).
+``sgm_sweep_wta`` kernel (:mod:`i3dr_stereo_tpu_torch.ops.sgm_fused_t`).
 """
 
 from __future__ import annotations
