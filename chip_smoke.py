@@ -9,7 +9,9 @@ nothing of the JAX package. In order, and failing (non-zero exit, no
 final result line) on the first thing that is wrong:
 
 1. prints the card (nvidia-smi name and power limit) and the versions;
-2. builds every kernel of the port from ``i3dr_stereo_tpu_torch/csrc``;
+2. builds every kernel of the port from ``i3dr_stereo_tpu_torch/csrc`` and
+   measures the card's popcount rate (``csrc/popc_probe.cu``) beside the
+   rate the bounds of the two census kernels assume;
 3. runs each kernel against its plain torch twin on the card:
    - census cost, every SGM sweep, the sweep that ends in the WTA and
      the row gather at every level of the flagship pyramid at its own
@@ -22,7 +24,11 @@ final result line) on the first thing that is wrong:
      forward plane): costs and the int16 / float32 running sums after
      every sweep bit-equal; valid masks identical, disparities within
      1e-4, gathers bit-equal. Level 0 times every sweep, the up-sweep
-     with and without the WTA, and the stage;
+     with and without the WTA, and the stage. ``census_cost`` alone also
+     where its strips and runs are ragged: 5x5, 9x9 and 17x17 census
+     (NW = 1, 3, 9), D = 8, 32, 48, bpm = 5, -16, 300, -300 (beyond a
+     strip on either side), B = 2, W_real < W, H_real < H, and rows of
+     2448 columns;
    - remap at 2448x2048 on the distorted rig of ``bench.py``
      (pipeline_batch; both cameras), uint8 and float32 sources, cubic
      and linear, B = 1 and 2: bit-equal (the left cubic uint8 B = 1 case
@@ -73,7 +79,9 @@ final result line) on the first thing that is wrong:
    -16 on inputs warped by the prediction, the coarsest level unwarped
    from the minimum disparity; level 0 timed), at 1x2048x2448x256 base 0
    (timed), a 17x17 census, non-uniform bases below -64 and a ragged
-   B = 2 frame; the BT kernel at 1x1024x1280x128 (timed) and at a ragged
+   B = 2 frame (W = 131) at D = 48 and at D = 32, there also with bases
+   that leave whole rows without a valid column, 5x5 and 17x17 words and
+   a partial last warp; the BT kernel at 1x1024x1280x128 (timed) and at a ragged
    D = 130 with a negative minimum disparity; then ``fused_census_sgm``
    (4 paths, level 0's shape, and 8 paths on the ragged frame) and
    ``fused_bt_sgm`` (8 paths, 1024x1280x128) whole against their twins;
@@ -95,8 +103,9 @@ final result line) on the first thing that is wrong:
     reported.
 
 Each kernel's entry also carries its bound (the least time the card could
-take: bytes moved once over 3.35 TB/s, or operations over 67 TFLOP/s,
-whichever is larger, at the timed shape) and, where one PyTorch call
+take: bytes moved once over 3.35 TB/s, or operations over 67 TFLOP/s with
+popcounts at their own rate, a sixteenth of it, whichever is larger, at
+the timed shape) and, where one PyTorch call
 computes the same function (``grid_sample`` for the remap), that call's
 time; for the row gather it is the time of the whole function in PyTorch
 calls (anchor lookup, both clamps, ``x - e``, ``torch.gather``), with the
@@ -144,7 +153,9 @@ SOURCES = {
                    "i3dr_stereo_tpu/ops/sgm_pallas.py:173,229"),
     "sgm_volume_sum": ("i3dr_stereo_tpu_torch/csrc/sgm_volume.cu",
                        "i3dr_stereo_tpu/ops/sgm_pallas.py:173,229"),
-    "fused_census_fwd": ("i3dr_stereo_tpu_torch/csrc/fused_cost_sgm.cu",
+    # the kernel of the main path's shape (D = 32); every other D runs
+    # csrc/fused_cost_sgm.cu's
+    "fused_census_fwd": ("i3dr_stereo_tpu_torch/csrc/fused_census32.cu",
                          "i3dr_stereo_tpu/ops/fused_cost_sgm.py:201"),
     "fused_bt_fwd": ("i3dr_stereo_tpu_torch/csrc/fused_cost_sgm.cu",
                      "i3dr_stereo_tpu/ops/fused_cost_sgm.py:348"),
@@ -160,13 +171,16 @@ LEAN_SGBM_KERNELS = ("remap", "fused_bt_fwd", "sgm_volume", "sgm_volume_sum")
 # outside the tensor cores (integer operations are counted at that rate)
 PEAK_BYTES_S = 3.35e12
 PEAK_OPS_S = 67e12
+# popcounts: 16 a clock an SM where the float32 rate counts 128 lanes x 2,
+# a sixteenth of it (4.19e12/s); phase_popc_rate measures what the card holds
+PEAK_POPC_S = PEAK_OPS_S / 16
 
 # substrings of the port's CUDA kernel names, for the profile table
 KERNEL_SYMBOLS = ("census_cost_kernel", "sgm_sweep_kernel",
                   "row_gather_kernel", "remap_kernel", "ccl_local",
                   "ccl_boundary", "ccl_count", "ccl_keep",
                   "sgm_volume_kernel", "sgm_volume_sum_kernel",
-                  "fused_fwd_kernel")
+                  "fused_fwd_kernel", "census32_kernel")
 # accuracy_bench.py:sgbm_1280's scene and size
 H_SGBM, W_SGBM = 1024, 1280
 SGBM_SCENE = dict(max_disp=120, background_disp=8, layers=5, seed=21)
@@ -212,15 +226,20 @@ def gpu_times(fn, iters: int) -> list:
     return times
 
 
-def set_bound(stats, name: str, nbytes: float, nops: float) -> None:
+def set_bound(stats, name: str, nbytes: float, nops: float,
+              npopc: float = 0.0) -> None:
     """The least time the card could take for the timed call: every input
     read once and every output written once over the memory rate, or its
-    operations over the float32 rate, whichever is larger."""
+    operations over their rate, whichever is larger. Popcounts are counted
+    at their own rate (``PEAK_POPC_S``), every other operation at the
+    float32 rate."""
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    t_ops = nops / PEAK_OPS_S * 1e3
+    t_ops = max(nops / PEAK_OPS_S, npopc / PEAK_POPC_S) * 1e3
     stats[name]["bound_ms"] = max(t_bytes, t_ops)
     stats[name]["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
     stats[name]["bound_bytes"] = int(nbytes)
+    stats[name]["bound_bytes_ms"] = t_bytes
+    stats[name]["bound_popcounts"] = int(npopc)
 
 
 def card_line() -> str:
@@ -304,6 +323,43 @@ def flagship_levels(cfg, sc):
         yield level, lp, rp, pred_eff, q, -16, Hh, Wh
 
 
+def lean_levels(cfg, sc, D=32):
+    """Every level of the lean flagship pyramid at its own shape (padded
+    to multiples of 8), built as matchers/pyramid.py:_match_level_lean
+    builds it: (level, left census, right census, base, H_real, W_real)
+    with (1, H8, W8, NW) census words on the card. The prediction that
+    warps the right view is the downsampled ground truth (base -D/2);
+    the coarsest level is unwarped and searches from the minimum
+    disparity."""
+    from i3dr_stereo_tpu_torch.matchers import pyramid as pyr
+    from i3dr_stereo_tpu_torch.ops.block_gather import pad_edge
+    from i3dr_stereo_tpu_torch.ops.census import census_transform
+
+    dev = torch.device(DEVICE)
+    l = torch.tensor(sc.left, device=dev)[None]
+    r = torch.tensor(sc.right, device=dev)[None]
+    gt = torch.tensor(sc.disparity, device=dev)[None]
+    n_levels = cfg.max_pyramid_level
+    for level in range(n_levels):
+        if level:
+            l, r, gt = (pyr._downsample2(l), pyr._downsample2(r),
+                        pyr._downsample2(gt))
+        _, Hh, Wh = l.shape
+        H8, W8 = -(-Hh // 8) * 8, -(-Wh // 8) * 8
+        if level == n_levels - 1:
+            base, rw = int(round(cfg.min_disparity / 2 ** level)), r
+        else:
+            pred = torch.round(gt / 2 ** level).to(torch.int64).clamp(
+                0, Wh - 1)
+            xs = torch.arange(Wh, dtype=torch.int64, device=dev)
+            base, rw = -(D // 2), r.gather(2, (xs - pred).clamp(0, Wh - 1))
+        yield (level,
+               census_transform(pad_edge(l, H8, W8), cfg.census_height,
+                                cfg.census_width),
+               census_transform(pad_edge(rw, H8, W8), cfg.census_height,
+                                cfg.census_width), base, Hh, Wh)
+
+
 def flagship_pipe(lean=False):
     """The product's frame: ``bench.py:_flagship_cfg`` on the ideal rig,
     raw uint8 in, bicubic rectification (the ideal rig's maps are the
@@ -346,6 +402,29 @@ def compare_gather(bg, src, idx, q, r, label, stats):
     return out
 
 
+def compare_cost(sf, cl, cr, D, *, bpm, H_real, W_real, label, stats,
+                 wide_values=True):
+    """census_cost vs its twin, C and the unclamped plane bit-equal.
+    Returns the kernel's (C, Cw)."""
+    C, Cw = sf.census_cost(cl, cr, D, bpm=bpm, H_real=H_real, W_real=W_real)
+    Cp, Cwp = sf.census_cost_plain(cl, cr, D, bpm=bpm, H_real=H_real,
+                                   W_real=W_real)
+    torch.cuda.synchronize()
+    check(torch.equal(C, Cp), f"{label}: census_cost differs from its twin "
+          f"({(C != Cp).sum().item()} of {C.numel()})")
+    check((Cw is None) == (Cwp is None) == (cl.shape[-1] * 32 <= 254),
+          f"{label}: unclamped plane present iff more than 254 bits")
+    if Cw is not None:
+        check(torch.equal(Cw, Cwp),
+              f"{label}: census_cost's unclamped plane differs")
+        check(not wide_values or bool((Cw > 254).any()),
+              f"{label}: no distance above 254")
+    stats["census_cost"]["err"] = max(
+        stats["census_cost"]["err"],
+        int((C.int() - Cp.int()).abs().max().item()))
+    return C, Cw
+
+
 def compare_level(sf, bg, cl, cr, *, bpm, H_real, W_real, directions, ur,
                   pens, label, stats, subpixel=True, time_it=False,
                   card=""):
@@ -353,21 +432,8 @@ def compare_level(sf, bg, cl, cr, *, bpm, H_real, W_real, directions, ur,
     in the WTA vs their twins on the same inputs, then the backmatch lookup (row_gather at radius D/2 + 1 around the
     window midpoint) on the level's own right-anchored disparities."""
     D = 32
-    C, Cw = sf.census_cost(cl, cr, D, bpm=bpm, H_real=H_real, W_real=W_real)
-    Cp, Cwp = sf.census_cost_plain(cl, cr, D, bpm=bpm, H_real=H_real,
-                                   W_real=W_real)
-    torch.cuda.synchronize()
-    check(torch.equal(C, Cp), f"{label}: census_cost differs from its twin")
-    check((Cw is None) == (Cwp is None) == (cl.shape[-1] * 32 <= 254),
-          f"{label}: unclamped plane present iff more than 254 bits")
-    if Cw is not None:
-        check(torch.equal(Cw, Cwp),
-              f"{label}: census_cost's unclamped plane differs")
-        check(bool((Cw > 254).any()), f"{label}: no distance above 254")
-    stats["census_cost"]["err"] = max(
-        stats["census_cost"]["err"],
-        int((C.int() - Cp.int()).abs().max().item()))
-    del Cp, Cwp
+    C, Cw = compare_cost(sf, cl, cr, D, bpm=bpm, H_real=H_real,
+                         W_real=W_real, label=label, stats=stats)
 
     dirs = (sf.DIRECTIONS_4 if directions == 4 else sf.DIRECTIONS_8)
     down = [d for d in sf._DOWN if d in dirs]
@@ -450,11 +516,25 @@ def compare_level(sf, bg, cl, cr, *, bpm, H_real, W_real, directions, ur,
             lambda: sf.census_cost_plain(cl, cr, D, **kw), iters=1, warmup=0)
         n = C.numel()                       # (pixel, disparity) pairs
         NW = cl.shape[-1]
-        # both census planes in, C (and the int16 plane) out; xor +
-        # popcount per word and pair
+        # both census planes in, C (and the int16 plane) out; per pair a
+        # xor and an add a word, and the popcounts at their own rate: one a
+        # word, or two for three words (a carry-save adder, as the kernel
+        # does at NW = 3)
+        npopc = n * (2 if NW == 3 else NW)
         set_bound(stats, "census_cost",
                   2 * cl.numel() * 4 + n * (1 if Cw is None else 3),
-                  n * (2 * NW + 1))
+                  n * (NW + 3), npopc=npopc)
+        st = stats["census_cost"]
+        print(f"census_cost at level 0 [{card}]: {st['ms']:.4f} ms (plain "
+              f"twin {st['plain_ms']:.1f} ms); bound {st['bound_ms']:.4f} ms "
+              f"by {st['bound_by']} ({st['bound_ms'] / st['ms']:.0%} of it "
+              f"reached): {st['bound_bytes_ms']:.4f} ms for its "
+              f"{st['bound_bytes'] / 1e9:.3f} GB, "
+              f"{npopc / PEAK_POPC_S * 1e3:.4f} ms for its "
+              f"{npopc / 1e6:.0f} M popcounts at "
+              f"{PEAK_POPC_S / 1e12:.2f} T/s ({n * NW / 1e6:.0f} M and "
+              f"{n * NW / PEAK_POPC_S * 1e3:.4f} ms at one a word)",
+              flush=True)
         time_sweeps(sf, C, acc, inputs, pen, last, wkw, plain_ms,
                     wta_plain_ms, stats, card)
 
@@ -508,6 +588,32 @@ def time_sweeps(sf, C, acc, inputs, pen, last, wkw, plain_ms, wta_plain_ms,
           f"({stage_bytes / PEAK_BYTES_S * 1e3:.4f} ms at the HBM peak, "
           f"{stage_bytes / stage / 1e6:.1f} GB/s reached); twins "
           f"{sum(plain_ms) + wta_plain_ms:.1f} ms", flush=True)
+
+
+def phase_popc_rate(card):
+    """The card's popcount rate by ``csrc/popc_probe.cu`` (8 independent
+    chains of add, popcount, add a thread, 16 blocks of 256 threads an SM),
+    beside the rate the bounds of the two census kernels assume."""
+    from i3dr_stereo_tpu_torch import _build
+
+    lib = _build.library()
+    blocks = 16 * torch.cuda.get_device_properties(0).multi_processor_count
+    iters = 4096
+    out = torch.empty(blocks * 256, dtype=torch.int32, device=DEVICE)
+
+    def probe():
+        err = lib.i3dr_popc_probe(out.data_ptr(), blocks, iters,
+                                  torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"popc_probe: CUDA error {err}")
+
+    ms = gpu_ms(probe)
+    rate = blocks * 256 * iters * 8 / ms * 1e3
+    print(f"popcount rate [{card}]: {rate / 1e12:.3f} T/s measured "
+          f"({ms:.3f} ms), {PEAK_POPC_S / 1e12:.3f} T/s assumed by the bounds "
+          f"(16 a clock an SM at the clock behind {PEAK_OPS_S / 1e12:.0f} "
+          f"TFLOP/s)", flush=True)
+    check(rate < 1.1 * PEAK_POPC_S, "the card counts bits faster than the "
+          "bounds assume")
 
 
 def phase_kernels(stats, card):
@@ -591,6 +697,40 @@ def phase_kernels(stats, card):
                       label=f"ragged 45x131 in 48x136 bpm={bpm} "
                             f"paths={dirs} ur={ur} census {win}x{win}",
                       stats=stats)
+
+    # census_cost alone where its strips and runs are ragged: NW = 1, 3, 9
+    # (5x5, 9x9, 17x17 with the unclamped plane), D = 8 (byte stores), 32,
+    # 48 (three runs a pixel), bpm on both sides and beyond a strip's
+    # width on both sides, B = 2, W_real < W, H_real < H; then a row of
+    # the frame's width that is no multiple of the strip
+    a = torch.tensor(rng.uniform(0, 255, (2, 48, 136)), dtype=torch.float32,
+                     device=dev)
+    b = torch.roll(a, -3, 2) + torch.tensor(rng.normal(0, 4, a.shape),
+                                            dtype=torch.float32, device=dev)
+    n_cases = 0
+    for win in (5, 9, 17):
+        cl = census_transform(a, win, win)
+        cr = census_transform(-a if win == 17 else b, win, win)
+        for D in (8, 32, 48):
+            for bpm in (5, -16, 300, -300):
+                compare_cost(sf, cl, cr, D, bpm=bpm, H_real=45, W_real=131,
+                             label=f"census_cost ragged 2x45x131 in 48x136 "
+                                   f"census {win}x{win} D={D} bpm={bpm}",
+                             stats=stats, wide_values=abs(bpm) < 131)
+                n_cases += 1
+    wide = torch.tensor(rng.uniform(0, 255, (1, 16, W_FULL)),
+                        dtype=torch.float32, device=dev)
+    cw = census_transform(wide, 9, 9)
+    for bpm in (5, -16):
+        compare_cost(sf, cw, census_transform(torch.roll(wide, -2, 2), 9, 9),
+                     32, bpm=bpm, H_real=13, W_real=W_FULL - 9,
+                     label=f"census_cost 1x13x{W_FULL - 9} in 16x{W_FULL} "
+                           f"bpm={bpm}", stats=stats)
+        n_cases += 1
+    print(f"census_cost at {n_cases} ragged shapes (NW 1, 3, 9; D 8, 32, 48; "
+          f"bpm 5, -16, 300, -300; B = 2; W_real < W, H_real < H; W = "
+          f"{W_FULL}): C and the unclamped plane bit-equal to the twin",
+          flush=True)
 
     phase_remap(stats)
     phase_speckle(stats, sc, cfg)
@@ -862,10 +1002,15 @@ def phase_profile(pipe, left, right, card, label="flagship",
         print(f"  {t / 1e3 / frames:8.3f} ms/frame {n // frames:5d}x  "
               f"{name[:90]}", flush=True)
     print("the port's kernels in that window:", flush=True)
+    kernels = {}
     for name, (n, t) in ranked:
         if any(k in name for k in KERNEL_SYMBOLS):
+            kernels[name] = t / 1e3 / frames
             print(f"  {t / 1e3 / frames:8.3f} ms/frame {n // frames:5d}x  "
                   f"{name[:90]}", flush=True)
+    return {"wall_ms": wall / frames, "busy_ms": busy / frames,
+            "idle_share": 1 - busy / wall, "activities": len(spans) / frames,
+            "port_kernels_ms": ours / frames, "kernels_ms": kernels}
 
 
 # ---------------------------------------------------------------------------
@@ -1083,12 +1228,12 @@ def phase_sgbm(stats, card):
 
 def compare_fused(name, kernel, plain, args, kw, label, stats):
     """One fused forward kernel vs its twin: C and S bit-equal in the
-    float32 and the int16 mode. Returns the kernel's (C, float32 L)."""
+    float32 and the int16 mode. Returns the kernel's (C, float32 L) and
+    the device ms of the float32 twin's one call."""
     out = None
     for od in (torch.float32, torch.int16):
         C, S = kernel(*args, out_dtype=od, **kw)
-        Cp, Sp = plain(*args, out_dtype=od, **kw)
-        torch.cuda.synchronize()
+        (Cp, Sp), ms = timed(lambda: plain(*args, out_dtype=od, **kw))
         errC = int((C.int() - Cp.int()).abs().max().item())
         errS = (S.float() - Sp.float()).abs().max().item()
         stats[name]["err"] = max(stats[name]["err"], float(errC), errS)
@@ -1096,32 +1241,36 @@ def compare_fused(name, kernel, plain, args, kw, label, stats):
               f"(max {errC})")
         check(torch.equal(S, Sp), f"{label}: {name} {str(od)[6:]} S differs "
               f"from its twin (max {errS})")
-        out = out or (C, S)
-    C, L = out
+        out = out or (C, S, ms)
+    C, L, plain_ms = out
     print(f"{label}: {name} C and S (float32, int16) bit-equal to the twin "
           f"({(C == 255).float().mean().item():.4f} of C invalid, "
           f"{(C == 254).float().mean().item():.6f} at the clamp, max L below "
           f"1e9 {L[L < 5e8].max().item():.1f})", flush=True)
-    return C, L
+    return C, L, plain_ms
 
 
-def time_fused(name, kernel, plain, args, kw, nbytes_in, ops_per_pair, stats,
-               label, card, record=True):
-    """Time one fused forward kernel (float32 S) and its twin; with
-    ``record`` the numbers go into the kernel's entry."""
+def time_fused(name, kernel, args, kw, plain_ms, nbytes_in, ops_per_pair,
+               stats, label, card, record=True, popc_per_pair=0):
+    """Time one fused forward kernel (float32 S) beside its twin's time from
+    compare_fused; with ``record`` the numbers go into the kernel's entry."""
     kw = dict(kw, out_dtype=torch.float32)
     ms = gpu_ms(lambda: kernel(*args, **kw))
-    plain_ms = gpu_ms(lambda: plain(*args, **kw), iters=1, warmup=0)
     C, _ = kernel(*args, **kw)
     n = C.numel()
     nbytes = nbytes_in + 5 * n      # inputs in; uint8 C and float32 L out
     if record:
         stats[name]["ms"], stats[name]["plain_ms"] = ms, plain_ms
-        set_bound(stats, name, nbytes, ops_per_pair * n)
+        set_bound(stats, name, nbytes, ops_per_pair * n,
+                  npopc=popc_per_pair * n)
     print(f"{label} [{card}]: {name} {ms:.4f} ms (plain twin {plain_ms:.1f} "
           f"ms; {nbytes / 1e9:.3f} GB moved once, "
           f"{nbytes / PEAK_BYTES_S * 1e3:.4f} ms at the HBM peak, "
-          f"{nbytes / ms / 1e6:.1f} GB/s reached)", flush=True)
+          f"{nbytes / ms / 1e6:.1f} GB/s reached"
+          + (f"; {popc_per_pair * n / 1e6:.0f} M popcounts, "
+             f"{popc_per_pair * n / PEAK_POPC_S * 1e3:.4f} ms at "
+             f"{PEAK_POPC_S / 1e12:.2f} T/s" if popc_per_pair else "")
+          + ")", flush=True)
 
 
 def compare_whole(fn, args, kw, label, card):
@@ -1141,10 +1290,8 @@ def compare_whole(fn, args, kw, label, card):
 def phase_fused(stats, card):
     from i3dr_stereo_tpu_torch.config import params
     from i3dr_stereo_tpu_torch.io.synthetic import layered_scene
-    from i3dr_stereo_tpu_torch.matchers import pyramid as pyr
     from i3dr_stereo_tpu_torch.ops import fused_cost_sgm as fcs
     from i3dr_stereo_tpu_torch.ops import sgm
-    from i3dr_stereo_tpu_torch.ops.block_gather import pad_edge
     from i3dr_stereo_tpu_torch.ops.census import census_transform
     from i3dr_stereo_tpu_torch.ops.cost import xsobel_prefilter
 
@@ -1159,44 +1306,25 @@ def phase_fused(stats, card):
         return torch.full((H // fcs.row_tile(H),), value, dtype=torch.int32,
                           device=dev)
 
-    # J at every level of the lean pyramid at its own shape, built as
-    # matchers/pyramid.py:_match_level_lean builds it; the prediction that
-    # warps the right view is the downsampled ground truth
+    # J at every level of the lean pyramid at its own shape
     sc = layered_scene(H_FULL, W_FULL, **SCENE)
-    l = torch.tensor(sc.left, device=dev)[None]
-    r = torch.tensor(sc.right, device=dev)[None]
-    gt = torch.tensor(sc.disparity, device=dev)[None]
-    n_levels = cfg.max_pyramid_level
     D = 32
     level0 = None
-    for level in range(n_levels):
-        if level:
-            l, r, gt = (pyr._downsample2(l), pyr._downsample2(r),
-                        pyr._downsample2(gt))
-        _, Hh, Wh = l.shape
-        H8, W8 = -(-Hh // 8) * 8, -(-Wh // 8) * 8
-        if level == n_levels - 1:
-            base, rw = int(round(cfg.min_disparity / 2 ** level)), r
-        else:
-            pred = torch.round(gt / 2 ** level).to(torch.int64).clamp(
-                0, Wh - 1)
-            xs = torch.arange(Wh, dtype=torch.int64, device=dev)
-            base, rw = -(D // 2), r.gather(2, (xs - pred).clamp(0, Wh - 1))
-        cl = census_transform(pad_edge(l, H8, W8), cfg.census_height,
-                              cfg.census_width)
-        cr = census_transform(pad_edge(rw, H8, W8), cfg.census_height,
-                              cfg.census_width)
+    for level, cl, cr, base, Hh, Wh in lean_levels(cfg, sc, D):
+        H8, W8 = cl.shape[1:3]
         args = (fcs.census_word_planes(cl), fcs.census_word_planes(cr),
                 bases(H8, base), D, cfg.p1, cfg.p2)
-        compare_fused(*J, args, {}, f"lean level {level} {Wh}x{Hh} in "
-                      f"{W8}x{H8} D={D} base={base}", stats)
+        _, _, twin_ms = compare_fused(
+            *J, args, {}, f"lean level {level} {Wh}x{Hh} in {W8}x{H8} "
+            f"D={D} base={base}", stats)
         if level == 0:
-            level0 = (cl, cr, args)
-    cl0, cr0, args0 = level0
+            level0 = (cl, cr, args, twin_ms)
+    cl0, cr0, args0, twin_ms = level0
     NW = cl0.shape[-1]
     words_in = 2 * cl0.numel() * 4
-    time_fused(*J, args0, {}, words_in, 2 * NW + 10, stats,
-               f"lean level 0 {W_FULL}x{H_FULL}x{D} base=-16", card)
+    time_fused(*J[:2], args0, {}, twin_ms, words_in, NW + 10, stats,
+               f"lean level 0 {W_FULL}x{H_FULL}x{D} base=-16", card,
+               popc_per_pair=NW)
 
     # bench.py:sgm_direct_2448's shape: all 256 disparities at full
     # resolution, unwarped (base 0)
@@ -1204,10 +1332,11 @@ def phase_fused(stats, card):
     cr256 = census_transform(torch.tensor(sc.right, device=dev)[None], 9, 9)
     args256 = (fcs.census_word_planes(cl256), fcs.census_word_planes(cr256),
                bases(H_FULL, 0), 256, 10.0, 120.0)
-    compare_fused(*J, args256, {}, f"direct {W_FULL}x{H_FULL}x256 base=0",
-                  stats)
-    time_fused(*J, args256, {}, words_in, 2 * NW + 10, stats,
-               f"direct {W_FULL}x{H_FULL}x256 base=0", card, record=False)
+    _, _, twin_ms = compare_fused(
+        *J, args256, {}, f"direct {W_FULL}x{H_FULL}x256 base=0", stats)
+    time_fused(*J[:2], args256, {}, twin_ms, words_in, NW + 10, stats,
+               f"direct {W_FULL}x{H_FULL}x256 base=0", card, record=False,
+               popc_per_pair=NW)
     del cl256, cr256, args256
     torch.cuda.empty_cache()
 
@@ -1222,14 +1351,32 @@ def phase_fused(stats, card):
                                             dtype=torch.float32, device=dev)
     ragged = torch.tensor(rng.integers(-90, 20, (11,)), dtype=torch.int32,
                           device=dev)
+    # and for the D = 32 kernel: the same ragged frame (W = 131 is no
+    # multiple of its 32-column tiles or 8-column blocks), bases that leave
+    # whole rows without a valid column on either side, 5x5 and 17x17
+    # words, and 2 x 43 rows (row tiles of 1; the last warp is partial)
+    empty = ragged.clone()
+    empty[2], empty[5], empty[7] = 131 + 40, -(131 + 40), 131
     for win, other, D_s, md, base, label in (
             (17, -a, 40, 0, bases(44, 0), "17x17 census vs the negative"),
-            (9, b, 48, 3, ragged, "ragged 2x44x131 D=48 non-uniform base")):
-        planes = [fcs.census_word_planes(census_transform(x, win, win))
+            (9, b, 48, 3, ragged, "ragged 2x44x131 D=48 non-uniform base"),
+            (9, b, 32, 3, ragged, "ragged 2x44x131 D=32 non-uniform base"),
+            (9, b, 32, 0, empty, "ragged 2x44x131 D=32, bases that empty "
+                                 "rows"),
+            (9, b, 48, 0, empty, "ragged 2x44x131 D=48, bases that empty "
+                                 "rows"),
+            (5, b, 32, -2, ragged, "ragged 2x44x131 D=32 5x5 census"),
+            (17, -a, 32, 0, ragged, "ragged 2x44x131 D=32 17x17 census vs "
+                                    "the negative"),
+            (9, b[:, :43], 32, 1, bases(43, -7), "2x43x131 D=32, a partial "
+                                                 "warp")):
+        rows = other.shape[1]
+        planes = [fcs.census_word_planes(census_transform(x[:, :rows], win,
+                                                          win))
                   for x in (a, other)]
-        C, L = compare_fused(*J, (*planes, base, D_s, 1.5, 9.0),
-                             dict(min_disp=md), label, stats)
-        if win == 17:
+        C, L, _ = compare_fused(*J, (*planes, base, D_s, 1.5, 9.0),
+                                dict(min_disp=md), label, stats)
+        if label.startswith("17x17"):
             check(bool((C == 254).any()) and L[L < 5e8].max().item() > 254,
                   "17x17: no distance above the uint8 clamp")
     pens = [(1.5, 9.0), (2.0, 11.0), (1.5, 9.0), (2.0, 11.0), (0.75, 30.0),
@@ -1250,11 +1397,12 @@ def phase_fused(stats, card):
     rp = xsobel_prefilter(torch.tensor(raw_u8(ssc.right), device=dev)
                           .float()[None], 31).contiguous()
     argsK = (lp, rp, bases(H_SGBM, 0), 128, 400.0, 800.0)
-    compare_fused(*K, argsK, {}, f"lean SGBM {W_SGBM}x{H_SGBM}x128", stats)
-    time_fused(*K, argsK, {}, 2 * lp.numel() * 4, 30, stats,
+    _, _, twin_ms = compare_fused(*K, argsK, {},
+                                  f"lean SGBM {W_SGBM}x{H_SGBM}x128", stats)
+    time_fused(*K[:2], argsK, {}, twin_ms, 2 * lp.numel() * 4, 30, stats,
                f"lean SGBM {W_SGBM}x{H_SGBM}x128", card)
     pa, pb = xsobel_prefilter(a, 31), xsobel_prefilter(b, 31)
-    C, _ = compare_fused(*K, (pa, pb, ragged, 130, 16.0, 64.0),
+    C, _, _ = compare_fused(*K, (pa, pb, ragged, 130, 16.0, 64.0),
                          dict(min_disp=-2),
                          "ragged 2x44x131 D=130 min_disp=-2 non-uniform base",
                          stats)
@@ -1479,6 +1627,7 @@ def main() -> int:
     stats = {k: {"err": 0.0, "ms": None, "plain_ms": None, "launches": 0,
                  "bound_ms": None, "bound_by": None, "library_ms": None}
              for k in SOURCES}
+    phase_popc_rate(card)
     phase_kernels(stats, card)
     phase_profile(*phase_main_path(stats, card), card)
     phase_volume(stats)
@@ -1502,6 +1651,8 @@ def main() -> int:
                 "max_abs_err": s["err"], "ms": s["ms"],
                 "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                 "bound_by": s["bound_by"], "bound_bytes": s["bound_bytes"],
+                "bound_bytes_ms": s["bound_bytes_ms"],
+                "bound_popcounts": s["bound_popcounts"],
                 "library_ms": s["library_ms"],
                 **{x: s[x] for x in s if x.startswith("library_ready")}}
                for k, s in stats.items()]

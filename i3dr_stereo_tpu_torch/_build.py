@@ -71,6 +71,9 @@ _SIGNATURES = {
     # left, right, base, th, C, S, s_i16, B, H, W, D, min_disp, p1, p2, stream
     "i3dr_fused_bt_fwd": (_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                           _F, _P),
+    # out (uint32, blocks * 256), blocks, iters, stream: the popcount-rate
+    # probe (blocks * 256 * iters * 8 popcounts); no kernel of any path
+    "i3dr_popc_probe": (_P, _I, _I, _P),
 }
 
 

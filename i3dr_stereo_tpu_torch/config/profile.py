@@ -6,7 +6,7 @@ over: the flat :class:`~i3dr_stereo_tpu_torch.config.params.MatcherConfig`
 builds its schedule through
 :func:`i3dr_stereo_tpu_torch.matchers.pyramid.profile_from_config`. The
 engine's ``.param`` INI parser and its unit conventions are not ported
-yet (ROADMAP.md, Queue 1 item 10).
+yet (ROADMAP.md, Queue 1 item 2).
 """
 
 from __future__ import annotations

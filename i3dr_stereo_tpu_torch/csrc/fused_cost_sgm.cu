@@ -24,28 +24,35 @@
 //   S = L as float32, or (int16 mode) trunc(min(L, 10000)); the carry
 //       stays the unclamped float32 either way.
 //
-// Design: one warp per image row, the D disparities across the lanes, K
-// consecutive ones per lane, the carry in registers (sgm_volume.cu's
-// horizontal sweep with the cost computed in place of loaded). The right
-// row is read directly at src — consecutive d are consecutive addresses,
-// and the next column re-reads all but one of them from L1 — so the
-// TPU's reversed right plane, its 128-aligned window loads and rotations,
-// its 8-column groups and its base >= -64 limit have no counterpart: any
-// base is tested against the bounds. The costs of the next UNROLL columns
-// are computed ahead of the dependent recurrence.
+// Any base is tested against the bounds: the TPU's reversed right plane,
+// its 128-aligned window loads and rotations, its 8-column groups and its
+// base >= -64 limit have no counterpart.
 //
-// What bounds it on the card: bytes written, and the dependent chain. At
-// 1x2048x2448, D = 32, NW = 3 it reads 0.12 GB of census words and writes
-// 0.16 GB of C and 0.64 GB of float32 L: 0.92 GB, ~0.27 ms at 3.35 TB/s.
-// Only B*H warps run (2048 there, ~15 per SM), each a chain of W steps.
+// The census cost at D = 32, the main path's shape, has a kernel of its
+// own in fused_census32.cu (what bounds it and its design are told there);
+// this file holds the kernel for every other D from 1 to 512 and for the
+// BT cost, and both entry points.
+//
+// Design (fused_fwd_kernel): one warp per image row, the D disparities
+// across the lanes, K consecutive ones per lane, the carry in registers
+// (sgm_volume.cu's horizontal sweep with the cost computed in place of
+// loaded). The costs of a block of U columns are computed ahead of the
+// dependent recurrence; for the census cost a lane's K disparities over the
+// block meet U + K - 1 consecutive right columns, each loaded once a block
+// (11 loads a plane at K = 8, U = 4, where a load a pairing made 32): at
+// 2048x2448, D = 256 that took 5.7-5.9 ms to 3.6 (NVIDIA H100 80GB HBM3,
+// 700 W). What bounds it there: 6.5 GB moved once are 1.95 ms at 3.35 TB/s.
+#include "fused_census32.cuh"
 #include "sgm_step.cuh"
 
 namespace {
 
 constexpr int THREADS = 128;
 
-// Cost functors: costs() gives the unclamped cost of left column x
-// against the right columns src[k] of one row, for the k with ok[k].
+// Cost functors: block() gives the unclamped costs of the U left columns
+// from x0 (those below W) of one row against the right columns
+// x0 + u - off - (d0 + k), for the k up to `last` whose column lies in the
+// row; what it leaves in the other places is not read.
 
 struct CensusCost {
   const uint32_t* cl;  // (NW, B, H, W) word planes
@@ -53,24 +60,41 @@ struct CensusCost {
   long long plane;     // B * H * W
   int NW;
 
-  template <int K>
-  __device__ __forceinline__ void costs(long long row, int x, int W,
-                                        const int (&src)[K],
-                                        const bool (&ok)[K],
-                                        float (&out)[K]) const {
-    int ham[K];
+  __host__ __device__ static constexpr int unroll(int K) {
+    return K <= 8 ? 4 : 2;
+  }
+
+  // A lane's K disparities over U columns meet U + K - 1 consecutive right
+  // columns: each is loaded once a block, not once a pairing.
+  template <int K, int U>
+  __device__ __forceinline__ void block(long long row, int x0, int W, int off,
+                                        int d0, int last,
+                                        float (&out)[U][K]) const {
+    int ham[U][K];
 #pragma unroll
-    for (int k = 0; k < K; ++k) ham[k] = 0;
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int k = 0; k < K; ++k) ham[u][k] = 0;
+    const int c0 = x0 - off - d0 - (K - 1);  // the column of u - k = -(K - 1)
     for (int w = 0; w < NW; ++w) {
       const uint32_t* l = cl + w * plane + row;
       const uint32_t* r = cr + w * plane + row;
-      const uint32_t a = __ldg(l + x);
+      uint32_t a[U], b[U + K - 1];
 #pragma unroll
-      for (int k = 0; k < K; ++k)
-        if (ok[k]) ham[k] += __popc(a ^ __ldg(r + src[k]));
+      for (int u = 0; u < U; ++u) a[u] = x0 + u < W ? __ldg(l + x0 + u) : 0u;
+#pragma unroll
+      for (int i = 0; i < U + K - 1; ++i)
+        b[i] = (unsigned)(c0 + i) < (unsigned)W ? __ldg(r + c0 + i) : 0u;
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+#pragma unroll
+        for (int k = 0; k < K; ++k)
+          ham[u][k] += __popc(a[u] ^ b[K - 1 + u - k]);
     }
 #pragma unroll
-    for (int k = 0; k < K; ++k) out[k] = (float)ham[k];
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int k = 0; k < K; ++k) out[u][k] = (float)ham[u][k];
   }
 };
 
@@ -82,11 +106,23 @@ struct BtCost {
   const float* left;   // (B, H, W) prefiltered images
   const float* right;
 
+  __host__ __device__ static constexpr int unroll(int K) {
+    return K <= 2 ? 4 : 2;
+  }
+
+  template <int K, int U>
+  __device__ __forceinline__ void block(long long row, int x0, int W, int off,
+                                        int d0, int last,
+                                        float (&out)[U][K]) const {
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (x0 + u < W) column<K>(row, x0 + u, W, off, d0, last, out[u]);
+  }
+
   template <int K>
-  __device__ __forceinline__ void costs(long long row, int x, int W,
-                                        const int (&src)[K],
-                                        const bool (&ok)[K],
-                                        float (&out)[K]) const {
+  __device__ __forceinline__ void column(long long row, int x, int W, int off,
+                                         int d0, int last,
+                                         float (&out)[K]) const {
     const float* l = left + row;
     const float* r = right + row;
     const float lx = __ldg(l + x);
@@ -97,8 +133,8 @@ struct BtCost {
 #pragma unroll
     for (int k = 0; k < K; ++k) {
       out[k] = 0.0f;
-      if (ok[k]) {
-        const int s = src[k];
+      const int s = x - off - (d0 + k);
+      if (k <= last && s >= 0 && s < W) {
         const float rx = __ldg(r + s);
         const float ra = half_sample(rx, __ldg(r + min(s + 1, W - 1)));
         const float rb = half_sample(rx, __ldg(r + max(s - 1, 0)));
@@ -121,7 +157,7 @@ __global__ void __launch_bounds__(THREADS)
                      uint8_t* __restrict__ C, float* __restrict__ Sf,
                      int16_t* __restrict__ Si, int H, int W, int D,
                      int min_disp, long long n_warps, float p1, float p2) {
-  constexpr int UNROLL = K <= 2 ? 4 : 2;
+  constexpr int UNROLL = Cost::unroll(K);  // columns a block
   const int lane = threadIdx.x & 31;
   const long long warp =
       (blockIdx.x * (long long)blockDim.x + threadIdx.x) >> 5;
@@ -140,19 +176,7 @@ __global__ void __launch_bounds__(THREADS)
 
   for (int x0 = 0; x0 < W; x0 += UNROLL) {
     float raw[UNROLL][K];
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      if (x0 + u < W) {
-        int src[K];
-        bool ok[K];
-#pragma unroll
-        for (int k = 0; k < K; ++k) {
-          src[k] = x0 + u - off - (d0 + k);
-          ok[k] = k <= last && src[k] >= 0 && src[k] < W;
-        }
-        cost.template costs<K>(row, x0 + u, W, src, ok, raw[u]);
-      }
-    }
+    cost.template block<K, UNROLL>(row, x0, W, off, d0, last, raw);
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) {
       if (x0 + u < W) {  // uniform across the warp
@@ -247,6 +271,9 @@ extern "C" int i3dr_fused_census_fwd(const void* cl, const void* cr,
                                      int NW, int D, int min_disp, float p1,
                                      float p2, void* stream) {
   if (NW < 1) return (int)cudaErrorInvalidValue;
+  if (i3dr::fused_census32_takes(D, NW))
+    return i3dr::fused_census32(cl, cr, base, th, C, S, s_i16, B, H, W, NW,
+                                min_disp, p1, p2, (cudaStream_t)stream);
   CensusCost cost = {(const uint32_t*)cl, (const uint32_t*)cr,
                      (long long)B * H * W, NW};
   return launch_fused(cost, base, th, C, S, s_i16, B, H, W, D, min_disp, p1,

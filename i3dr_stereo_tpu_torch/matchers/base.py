@@ -81,7 +81,7 @@ class StereoMatcher:
         if cfg.downsample_scale != 1.0:
             raise NotImplementedError(
                 "downsample_scale != 1 (the reference's cubic resize) is "
-                "not ported yet (ROADMAP.md Queue 1 item 16)")
+                "not ported yet (ROADMAP.md Queue 1 item 5)")
         return MATCHER_REGISTRY[cfg.algorithm](
             to_mono_f32(torch.as_tensor(left)),
             to_mono_f32(torch.as_tensor(right)), cfg, lean=self.lean)

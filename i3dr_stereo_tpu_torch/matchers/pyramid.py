@@ -37,7 +37,7 @@ map (:func:`_roundtrip_check`).
 
 Not ported yet, and raising ``NotImplementedError`` rather than skipping:
 half-pel subpix passes, occlusion handling and hole filling (ROADMAP.md
-Queue 1 item 10).
+Queue 1 item 2).
 """
 
 from __future__ import annotations
@@ -136,15 +136,15 @@ def _reject_unported(passes) -> None:
         if p.subpix_pass:
             raise NotImplementedError(
                 "half-pel subpix passes are not ported yet "
-                "(ROADMAP.md Queue 1 item 10)")
+                "(ROADMAP.md Queue 1 item 2)")
         if p.occlusion_detection:
             raise NotImplementedError(
                 "occlusion detection is not ported yet "
-                "(ROADMAP.md Queue 1 item 10)")
+                "(ROADMAP.md Queue 1 item 2)")
         if p.level == 0 and p.interpolate_gaps:
             raise NotImplementedError(
                 "hole filling (interp / interpolate_missing) is not ported "
-                "yet (ROADMAP.md Queue 1 item 10)")
+                "yet (ROADMAP.md Queue 1 item 2)")
 
 
 def pyramid_sgm_match(left, right, cfg: MatcherConfig,
@@ -169,11 +169,13 @@ def pyramid_sgm_match(left, right, cfg: MatcherConfig,
     passes = profile.enabled_levels
     if not passes:
         raise ValueError("profile has no enabled pyramid levels")
-    _reject_unported(passes)
     # clamp levels to what the image size supports (coarsest >= ~32 px)
     max_by_size = max(0, min(H, W).bit_length() - 6)
     passes = [dataclasses.replace(p, level=min(p.level, max_by_size))
               for p in passes]
+    # after the clamp: which level is the finest (and would fill its gaps)
+    # is decided on the clamped levels, as in the reference
+    _reject_unported(passes)
     deepest = max(p.level for p in passes)
 
     pyr_l, pyr_r = [l], [r]

@@ -8,7 +8,7 @@
 | 2    | MatcherI3DRSGM (Phobos engine)     | i3drsgm_match — census pyramid SGM, |
 |      |                                    | or dense census SGM (D <= 64)       |
 | 3    | MatcherOpenCVBlockCuda             | bm_match                            |
-| 4, 5 | BP / CSBP (cv::cuda)               | not ported: ROADMAP.md Queue 1 item 12 |
+| 4, 5 | BP / CSBP (cv::cuda)               | not ported: ROADMAP.md Queue 1 item 4 |
 
 Every backend takes (H, W) or (B, H, W) float32 images and returns a
 MatchResult. The SGM of SGBM and dense I3DRSGM is
@@ -22,7 +22,7 @@ computes under ``I3DR_SGM_BACKEND=pallas`` — the fused cost + SGM path of
 SGBM with the BT cost at ``window_size <= 1``; everything else is the
 same on both, as in the reference. The hole-filling options (``interp``,
 ``interpolate_missing``) need the WLS fill and raise
-``NotImplementedError`` naming ROADMAP.md Queue 1 item 10.
+``NotImplementedError`` naming ROADMAP.md Queue 1 item 2.
 """
 
 from __future__ import annotations
@@ -66,7 +66,7 @@ def _reject_hole_filling(cfg: MatcherConfig) -> None:
     if cfg.interp or cfg.interpolate_missing:
         raise NotImplementedError(
             "hole filling (interp / interpolate_missing: the WLS fill) is "
-            "not ported yet (ROADMAP.md Queue 1 item 10)")
+            "not ported yet (ROADMAP.md Queue 1 item 2)")
 
 
 def _batched(left, right):
@@ -240,8 +240,8 @@ MATCHER_REGISTRY = {
     Algorithm.SGBM: sgbm_match,
     Algorithm.I3DRSGM: i3drsgm_match,
     Algorithm.BM_GPU: bm_match,
-    Algorithm.BP_GPU: _not_ported("Queue 1 item 12"),
-    Algorithm.CSBP_GPU: _not_ported("Queue 1 item 12"),
+    Algorithm.BP_GPU: _not_ported("Queue 1 item 4"),
+    Algorithm.CSBP_GPU: _not_ported("Queue 1 item 4"),
 }
 
 

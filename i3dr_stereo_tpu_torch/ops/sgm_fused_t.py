@@ -52,6 +52,7 @@ U8_SENTINEL = 255
 U8_CLAMP = 254           # C holds min(hamming, 254)
 NODATA = -1.0e9          # invalid-pixel marker of the WTA output
 WARP_D = 32              # the warp kernels put one disparity on each lane
+MAX_COST_D = 4096        # census_cost: 256 threads a block, 16 disparities each
 
 _DOWN = ((1, 0), (1, 1), (1, -1))
 _UP = ((-1, 0), (-1, -1), (-1, 1))
@@ -134,6 +135,9 @@ def census_cost(cl: torch.Tensor, cr: torch.Tensor, D: int, *, bpm: int,
     _check_words(cl, cr)
     _build.require_cuda(cl, cr)
     B, H, W, NW = cl.shape
+    if not 1 <= D <= MAX_COST_D:
+        raise ValueError(f"the census_cost kernel takes D from 1 to "
+                         f"{MAX_COST_D}, got {D}")
     C = torch.empty((B, H, W, D), dtype=torch.uint8, device=cl.device)
     Cw = (torch.empty((B, H, W, D), dtype=torch.int16, device=cl.device)
           if _needs_wide(NW) else None)

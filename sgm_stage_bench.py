@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""The flagship SGM stage and frame of one or more checkouts of the
-PyTorch + CUDA port, measured in turns on one NVIDIA GPU.
+"""The flagship SGM stage, the two census-cost kernels and both flagship
+frames of one or more checkouts of the PyTorch + CUDA port, measured in
+turns on one NVIDIA GPU.
 
     python3 sgm_stage_bench.py [ROOT ...]
 
@@ -19,12 +20,16 @@ Per ROOT, with the card's name and power limit:
   events, median of 10), their difference (the SGM stage, whatever
   kernels the checkout runs it in), and the peak memory of one call above
   what was allocated before it;
-- the flagship frame (raw uint8 -> rectify -> pyramid with speckle ->
-  depth, cloud, crop): ms/frame (median of 10), peak memory, and
-  ``chip_smoke.py``'s five-frame profile (device busy, idle share,
-  activities a frame, the largest kernels);
-- a digest of the frame's disparity and valid mask; the last line says
-  whether all roots gave the same digest.
+- level 0 of the lean pyramid (2448x2048, D = 32, base -16):
+  ``fused_census_fwd`` with the float32 path costs the lean frame asks
+  for (median of 10), and a digest of its C and S;
+- the flagship frame and the lean flagship frame (raw uint8 -> rectify ->
+  pyramid with speckle -> depth, cloud, crop): ms/frame (median of 10),
+  peak memory, and ``chip_smoke.py``'s five-frame profile (device busy,
+  idle share, activities a frame, the largest kernels), from which the
+  summary takes device busy and the two census kernels' time a frame;
+- a digest of each frame's disparity and valid mask; the last line says
+  whether all roots gave the same digests.
 """
 
 from __future__ import annotations
@@ -37,6 +42,9 @@ import sys
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
+# the census-cost kernels' names in a profile: census_cost, and the fused
+# census forward pass in either of its kernels
+CENSUS_SYMBOLS = ("census_cost_kernel", "census32_kernel", "CensusCost")
 
 
 def load_chip_smoke():
@@ -58,6 +66,7 @@ def measure(root: Path) -> dict:
     from i3dr_stereo_tpu_torch.config import params
     from i3dr_stereo_tpu_torch.io.synthetic import layered_scene
     from i3dr_stereo_tpu_torch.ops import block_gather as bg
+    from i3dr_stereo_tpu_torch.ops import fused_cost_sgm as fcs
     from i3dr_stereo_tpu_torch.ops import sgm_fused_t as sf
     from i3dr_stereo_tpu_torch.ops.census import census_transform
 
@@ -94,18 +103,45 @@ def measure(root: Path) -> dict:
     del cl, cr
     torch.cuda.empty_cache()
 
-    # the flagship frame
-    pipe, left, right, sc, cfg, _ = cs.flagship_pipe()
-    torch.cuda.reset_peak_memory_stats()
-    res = cs.drive_frame(pipe, left, right, sc, (), f"{root.name} frame", {})
-    out["launches"] = dict(_build.LAUNCHES)
-    out["frame_digest"] = hashlib.sha256(
-        res.disparity.cpu().numpy().tobytes()
-        + res.valid.cpu().numpy().tobytes()).hexdigest()[:16]
-    out["frame_ms"] = cs.gpu_ms(lambda: pipe.process(left, right), iters=10,
-                                warmup=1)
-    out["frame_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
-    cs.phase_profile(pipe, left, right, card, label=f"{root.name} flagship")
+    # level 0 of the lean pyramid
+    _, cl, cr, base, _, _ = next(cs.lean_levels(cfg, sc))
+    clw, crw = fcs.census_word_planes(cl), fcs.census_word_planes(cr)
+    H8 = cl.shape[1]
+    del cl, cr
+    bases = torch.full((H8 // fcs.row_tile(H8),), base, dtype=torch.int32,
+                       device=cs.DEVICE)
+    fused = lambda: fcs.fused_census_horizontal(
+        clw, crw, bases, 32, cfg.p1, cfg.p2, out_dtype=torch.float32)
+    out["fused_census_fwd_ms"] = cs.gpu_ms(fused)
+    digest = hashlib.sha256()
+    for t in fused():
+        digest.update(t.cpu().numpy().tobytes())
+    out["lean_level0_digest"] = digest.hexdigest()[:16]
+    del clw, crw, t
+    torch.cuda.empty_cache()
+
+    # the two flagship frames
+    for name, lean in (("frame", False), ("lean_frame", True)):
+        pipe, left, right, sc, cfg, _ = cs.flagship_pipe(lean=lean)
+        torch.cuda.reset_peak_memory_stats()
+        res = cs.drive_frame(pipe, left, right, sc, (),
+                             f"{root.name} {name}", {})
+        out[f"{name}_launches"] = dict(_build.LAUNCHES)
+        out[f"{name}_digest"] = hashlib.sha256(
+            res.disparity.cpu().numpy().tobytes()
+            + res.valid.cpu().numpy().tobytes()).hexdigest()[:16]
+        out[f"{name}_ms"] = cs.gpu_ms(lambda: pipe.process(left, right),
+                                      iters=10, warmup=1)
+        out[f"{name}_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        prof = cs.phase_profile(pipe, left, right, card,
+                                label=f"{root.name} {name}")
+        out[f"{name}_busy_ms"] = prof["busy_ms"]
+        out[f"{name}_idle_share"] = prof["idle_share"]
+        out[f"{name}_census_kernels_ms"] = sum(
+            ms for k, ms in prof["kernels_ms"].items()
+            if any(sym in k for sym in CENSUS_SYMBOLS))
+        del pipe, res
+        torch.cuda.empty_cache()
     return out
 
 
@@ -128,14 +164,24 @@ def main() -> int:
             [l for l in run.stdout.splitlines()
              if l.startswith("RESULT ")][-1][7:]))
     for r in results:
-        print(f"{r['root']} [{r['card']}]: SGM stage at level 0 "
+        print(f"{r['root']} [{r['card']}]: census_cost at level 0 "
+              f"{r['census_cost_ms']:.4f} ms, SGM stage "
               f"{r['stage_ms']:.4f} ms by events ({r['census_sgm_wta_ms']:.4f}"
-              f" - {r['census_cost_ms']:.4f}), level-0 peak {r['level0_peak_gib']:.3f} "
-              f"GiB; frame {r['frame_ms']:.3f} ms, peak "
-              f"{r['frame_peak_gib']:.2f} GiB", flush=True)
-    same = (len({r["frame_digest"] for r in results}) == 1
-            and len({r["level0_digest"] for r in results}) == 1)
-    print(f"disparities of all roots bit-equal: {same}", flush=True)
+              f" - census_cost), level-0 peak {r['level0_peak_gib']:.3f} GiB;"
+              f" fused_census_fwd at lean level 0 "
+              f"{r['fused_census_fwd_ms']:.4f} ms", flush=True)
+        for name, kernel in (("frame", "census_cost"),
+                             ("lean_frame", "fused_census_fwd")):
+            print(f"  {name}: {r[name + '_ms']:.3f} ms/frame, device busy "
+                  f"{r[name + '_busy_ms']:.3f} ms/frame (idle share "
+                  f"{r[name + '_idle_share']:.4f}), {kernel} "
+                  f"{r[name + '_census_kernels_ms']:.3f} ms/frame of it, "
+                  f"peak {r[name + '_peak_gib']:.2f} GiB", flush=True)
+    same = all(len({r[k] for r in results}) == 1
+               for k in ("frame_digest", "lean_frame_digest",
+                         "level0_digest", "lean_level0_digest"))
+    print(f"disparities of both frames and both level-0 outputs of all "
+          f"roots bit-equal: {same}", flush=True)
     return 0 if same else 1
 
 

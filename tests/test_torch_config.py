@@ -112,18 +112,29 @@ def test_layered_scene_bit_identical(kw):
 
 
 def test_to_mono_matches_reference():
+    """A BGR uint8 image goes through the luma sum of both packages. The
+    port adds three float32 products left to right; the reference calls
+    ``tensordot``, which XLA's CPU backend may fuse into multiply-adds or
+    sum in another order. Both round a value below 256 a few times, to
+    2**-16 each: 1e-4 absolute covers it and is far below a grey level."""
     import jax.numpy as jnp
 
     from i3dr_stereo_tpu.core.frame import to_mono_f32 as ref_mono
     from i3dr_stereo_tpu_torch.core.frame import to_mono_f32
 
     rng = np.random.default_rng(1)
-    bgr = rng.integers(0, 256, (2, 17, 23, 3)).astype(np.uint8)
+    bgr = rng.integers(0, 256, (17, 23, 3)).astype(np.uint8)
     mono = rng.uniform(0, 255, (17, 23)).astype(np.float32)
-    np.testing.assert_allclose(to_mono_f32(torch.from_numpy(bgr)).numpy(),
-                               np.asarray(ref_mono(jnp.asarray(bgr))),
-                               rtol=1e-6, atol=1e-4)
+    got = to_mono_f32(torch.from_numpy(bgr)).numpy()
+    want = np.asarray(ref_mono(jnp.asarray(bgr)))
+    assert got.shape == want.shape == (17, 23) and got.dtype == np.float32
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+    # and it is the BT.601 luma, not a pass-through of either package
+    luma = bgr.astype(np.float64) @ np.array([0.114, 0.587, 0.299])
+    np.testing.assert_allclose(got, luma, rtol=0, atol=1e-4)
     np.testing.assert_array_equal(to_mono_f32(torch.from_numpy(mono)).numpy(),
+                                  mono)
+    np.testing.assert_array_equal(np.asarray(ref_mono(jnp.asarray(mono))),
                                   mono)
 
 

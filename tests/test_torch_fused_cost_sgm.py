@@ -104,6 +104,10 @@ CENSUS_CASES = {
     "9x9_D130": (9, (1, 8, 160), 130, 0, 0),
     "17x17_unclamped_forward": (17, (1, 8, 40), 8, 0, 0),
     "H12_tile_of_4": (5, (2, 12, 32), 8, 1, (0, 2, -3)),
+    # a base that leaves a whole row tile without a valid column: to the
+    # left (base = W) and to the right (base = -64, the reference's limit)
+    "9x9_D32_base_W_empties_tile_1": (9, (1, 16, 40), 32, 0, (-16, 40)),
+    "9x9_D32_base_minus64_empties_tile_1": (9, (2, 16, 32), 32, 0, (0, -64)),
 }
 
 
@@ -149,6 +153,10 @@ def test_census_horizontal_matches_interpret(name, dtype, census_runs):
     if name.startswith("17x17"):
         assert (Cr == 254).any()    # the clamp bites; the sweep is unclamped
         assert Sr.max() > 254
+    if "empties_tile_1" in name:
+        # rows 8..15: no pairing at all, and a carry that never starts
+        assert (Cr[:, 8:] == 255).all()
+        assert (Sr[:, 8:] >= (10000 if dtype == torch.int16 else 1e9)).all()
 
 
 def test_census_right_edge_upper_bound():

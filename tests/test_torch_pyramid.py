@@ -97,3 +97,30 @@ def test_profile_from_config_matches_reference():
     for a, b in zip(port.levels, ref.levels):
         for name in b.__dataclass_fields__:
             assert getattr(a, name) == getattr(b, name), name
+
+
+@pytest.mark.parametrize("shape,filled", [((48, 56), True),
+                                          ((64, 80), False)])
+def test_gap_filling_is_rejected_on_the_clamped_levels(shape, filled):
+    """Which level is the finest, and so would fill its gaps, is decided
+    after the levels are clamped to the image size, as in the reference
+    (its ``finest = p.level == 0`` reads the clamped level). A profile
+    whose only level is 1 with gap filling on: a 48x56 image clamps it to
+    level 0, where the reference would fill and the port must refuse
+    rather than return unfilled disparities; at 64x80 the level stays 1,
+    nothing is filled in either package, and the port runs."""
+    from i3dr_stereo_tpu_torch.config.profile import (PyramidLevelConfig,
+                                                      SGMProfile)
+
+    profile = SGMProfile(name="level_1_only", levels=(
+        PyramidLevelConfig(level=1, interpolate_gaps=True, speckle=False,
+                           prediction_shift=0.0),))
+    rng = np.random.default_rng(5)
+    img = torch.from_numpy(rng.uniform(0, 255, shape).astype(np.float32))
+    cfg = config_from_reference(_cfg())
+    if filled:
+        with pytest.raises(NotImplementedError, match="hole filling"):
+            pyr.pyramid_sgm_match(img, img, cfg, profile)
+    else:
+        res = pyr.pyramid_sgm_match(img, img, cfg, profile)
+        assert tuple(res.disparity.shape) == shape

@@ -13,7 +13,8 @@ import pytest
 import torch
 
 from i3dr_stereo_tpu.ops.census import census_transform as ref_census
-from i3dr_stereo_tpu.ops.sgm_fused_t import census_sgm_wta_t, right_disparity_from_C_t
+from i3dr_stereo_tpu.ops.sgm_fused_t import (census_sgm_wta_t, fused_census_fwd_t,
+                                             right_disparity_from_C_t)
 from i3dr_stereo_tpu_torch.ops import sgm_fused_t as sf
 from i3dr_stereo_tpu_torch.ops.census import census_transform
 
@@ -87,6 +88,41 @@ def test_census_sgm_wta_matches_interpret(bpm, directions, ur, B):
         edge = v[:, :H_REAL, bpm:bpm + 3]
         assert edge.mean() > (0.2 if ur else 0.5)
         np.testing.assert_array_equal(d.numpy(), d_ref)
+
+
+@pytest.mark.parametrize("bpm,W_real,H_real,B", [
+    (5, W_REAL, H_REAL, 1),
+    (-16, W_REAL, H_REAL, 2),
+    (-30, 97, 64, 1),
+    (20, 120, HP, 1),
+])
+def test_census_cost_matches_interpret(bpm, W_real, H_real, B):
+    """The cost volume alone against the C of the reference's forward
+    kernel, where a tiled kernel can go wrong: windows that leave the row
+    on either side, and padding. A pad pixel is 0 even where its source
+    column is out of range; a real pixel there is 255."""
+    lp, rp = _pair(B, seed=50 + bpm)
+    (cl_t, cr_t), (cl, cr) = _words(lp, rp)
+    C_ref, _ = fused_census_fwd_t(cl_t, cr_t, D, 0.1, 0.8, bpm=bpm,
+                                  W_real=W_real, H_real=H_real,
+                                  interpret=True)
+    C, Cw = sf.census_cost_plain(cl, cr, D, bpm=bpm, H_real=H_real,
+                                 W_real=W_real)
+    assert Cw is None
+    C = C.numpy()
+    np.testing.assert_array_equal(C, np.asarray(C_ref).transpose(0, 3, 1, 2))
+    src = np.arange(WP)[:, None] - bpm - np.arange(D)[None, :]   # (x, d)
+    outside = (src < 0) | (src >= W_real)
+    real = C[:, :H_real, :W_real]
+    assert (real[:, :, outside[:W_real]] == 255).all()
+    assert (real[:, :, ~outside[:W_real]] < 255).all()
+    assert outside[:W_real].any() and not outside[:W_real].all()
+    if W_real < WP:
+        # some pad pixels have no source column either
+        assert outside[W_real:].any() or bpm == 20
+        assert (C[:, :, W_real:] == 0).all()
+    if H_real < HP:
+        assert (C[:, H_real:] == 0).all()
 
 
 def test_census_17x17_forward_sweep_reads_unclamped_hamming():
