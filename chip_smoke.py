@@ -36,8 +36,13 @@ final result line) on the first thing that is wrong:
    - the speckle keep-mask: on level 0's disparities of the flagship
      scene after the downsample-2 front-end (1224x1024, S = 25, max_diff
      1.0), on the same disparities at full 2448x2048 (S = 100 / 0.5), on
-     a smooth one-component frame, on random blob fields (S = 12, 100,
-     200) and on a batch of ragged 131x45 frames: identical;
+     a smooth one-component frame; at 1224x1024 on a serpentine through
+     every tile (S = 25), a 194-px one across tile edges at S = its
+     size and one less, the one-component frame,
+     squares of exactly 25 px (dropped) and 26 px (kept) across tile
+     corners and an all-invalid frame (the number removed checked too);
+     on random blob fields (S = 12, 100, 200) and on a batch of ragged
+     131x45 frames: identical;
 4. drives the product's frame: raw uint8 images into
    ``StereoPipeline(device="cuda")`` with ``rectify_inputs=True`` (bicubic)
    and ``bench.py:_flagship_cfg`` unchanged (speckle 100 / 0.5 at
@@ -53,18 +58,23 @@ final result line) on the first thing that is wrong:
 6. profiles five back-to-back frames of the full path: device busy
    time, idle share and the device time of the largest kernels, all
    from that one window;
-7. runs the volume SGM kernels (``sgm_volume``, one path direction per
-   launch, and ``sgm_volume_sum``) against their plain twins, bit-equal
-   per direction, per sum and for the whole aggregation, at
-   1x1024x1280x128 float32 with 8 paths (P1/P2 200/400, each timed),
-   1x1024x1280x64 census-scale float32 with 4 paths (0.1/0.8), uint8
-   with sentinels into the int16 mode at 256x320x64, and a ragged
-   B = 2 131x45x130 volume with per-direction penalties;
+7. runs the volume SGM kernel (``sgm_volume``, one path direction per
+   launch, each folded into the running sum S and the group total T in
+   place) against its plain twin: the chain's S and the whole
+   aggregation bit-equal (and each direction's path costs alone where
+   said), at 1x1024x1280x128 float32 with 8 paths (P1/P2 200/400) in the
+   float32 mode (every direction alone too; the chain timed whole and
+   launch by launch) and in the int16 mode, 1x1024x1280x64 census-scale
+   float32 with 4 paths (0.1/0.8), uint8 with sentinels into the int16
+   mode at 256x320x64, a 1160x8x400 uint8 volume whose vertical families
+   split into groups of one, and a ragged B = 2 131x45x130 volume with
+   per-direction penalties and with a vertical group first (both
+   modes);
 8. drives the SGBM frame: raw uint8 images of ``accuracy_bench.py``'s
    1280x1024 scene through ``StereoPipeline(device="cuda")`` with
    rectification and its SGBM config (D = 128, window 5, 8 paths,
    P1/P2 200/400, uniqueness 10, disp12MaxDiff 1, speckle off,
-   subpixel): both volume kernels must launch during one frame, the
+   subpixel): ``sgm_volume`` must launch during one frame, the
    median error must be below 0.25 px at density > 0.5, and the matcher
    through the plain twins must agree at 256x320; then runs the SGBM
    defaults (speckle 100 / 4.0 at full resolution), the BM defaults and
@@ -84,11 +94,12 @@ final result line) on the first thing that is wrong:
    a partial last warp; the BT kernel at 1x1024x1280x128 (timed) and at a ragged
    D = 130 with a negative minimum disparity; then ``fused_census_sgm``
    (4 paths, level 0's shape, and 8 paths on the ragged frame) and
-   ``fused_bt_sgm`` (8 paths, 1024x1280x128) whole against their twins;
+   ``fused_bt_sgm`` (8 paths, 1024x1280x128) whole against their twins
+   (at level 0's shape in the int16 and the float32 mode);
 10. drives the lean flagship frame: as 4, through
     ``StereoPipeline(device="cuda", lean=True)``: ``fused_census_fwd``,
-    ``sgm_volume``, ``sgm_volume_sum``, ``speckle_ccl`` and ``remap``
-    must launch during one frame, the same accuracy gate, the matcher
+    ``sgm_volume``, ``speckle_ccl`` and ``remap`` must launch during one
+    frame, the same accuracy gate, the matcher
     through the twins at 256x320, timings, peak memory and the 5-frame
     profile;
 11. drives the lean SGBM frame: 8's scene and config with
@@ -97,7 +108,7 @@ final result line) on the first thing that is wrong:
     ``lean=False`` frame at the same config timed in turns with it
     (lean, default, default, lean), peak memory and profile of both;
 12. runs ``bench.py:sgm_direct_2448``'s chain once at 2048x2448: census
-    -> ``fused_census_sgm`` (D = 256, 4 paths, int16 partials) -> WTA ->
+    -> ``fused_census_sgm`` (D = 256, 4 paths, int16 mode) -> WTA ->
     min C < 255 -> LR check 1.5 -> speckle 100 / 0.5 at downsample 2:
     finite, density, error against ground truth and peak memory
     reported.
@@ -151,8 +162,6 @@ SOURCES = {
                     "i3dr_stereo_tpu/ops/speckle_pallas.py:304,340"),
     "sgm_volume": ("i3dr_stereo_tpu_torch/csrc/sgm_volume.cu",
                    "i3dr_stereo_tpu/ops/sgm_pallas.py:173,229"),
-    "sgm_volume_sum": ("i3dr_stereo_tpu_torch/csrc/sgm_volume.cu",
-                       "i3dr_stereo_tpu/ops/sgm_pallas.py:173,229"),
     # the kernel of the main path's shape (D = 32); every other D runs
     # csrc/fused_cost_sgm.cu's
     "fused_census_fwd": ("i3dr_stereo_tpu_torch/csrc/fused_census32.cu",
@@ -163,10 +172,10 @@ SOURCES = {
 # the kernels of each main path: the flagship frame, the SGBM frame
 FLAGSHIP_KERNELS = ("census_cost", "sgm_sweep", "sgm_sweep_wta",
                     "row_gather", "remap", "speckle_ccl")
-SGBM_KERNELS = ("remap", "sgm_volume", "sgm_volume_sum")
-LEAN_FLAGSHIP_KERNELS = ("fused_census_fwd", "sgm_volume", "sgm_volume_sum",
-                         "speckle_ccl", "remap")
-LEAN_SGBM_KERNELS = ("remap", "fused_bt_fwd", "sgm_volume", "sgm_volume_sum")
+SGBM_KERNELS = ("remap", "sgm_volume")
+LEAN_FLAGSHIP_KERNELS = ("fused_census_fwd", "sgm_volume", "speckle_ccl",
+                         "remap")
+LEAN_SGBM_KERNELS = ("remap", "fused_bt_fwd", "sgm_volume")
 # the card's published peaks (H100 SXM): HBM bytes/s, float32 FLOP/s
 # outside the tensor cores (integer operations are counted at that rate)
 PEAK_BYTES_S = 3.35e12
@@ -179,7 +188,7 @@ PEAK_POPC_S = PEAK_OPS_S / 16
 KERNEL_SYMBOLS = ("census_cost_kernel", "sgm_sweep_kernel",
                   "row_gather_kernel", "remap_kernel", "ccl_local",
                   "ccl_boundary", "ccl_count", "ccl_keep",
-                  "sgm_volume_kernel", "sgm_volume_sum_kernel",
+                  "sgm_volume_kernel",
                   "fused_fwd_kernel", "census32_kernel")
 # accuracy_bench.py:sgbm_1280's scene and size
 H_SGBM, W_SGBM = 1024, 1280
@@ -799,8 +808,10 @@ def phase_remap(stats):
                           flush=True)
 
 
-def compare_speckle(sp, d, v, S, md, label, stats, time_it=False):
-    """speckle_ccl vs its twin on (B, H, W) disparities, identical."""
+def compare_speckle(sp, d, v, S, md, label, stats, time_it=False,
+                    removed_expected=None):
+    """speckle_ccl vs its twin on (B, H, W) disparities, identical (and,
+    where given, the number of valid pixels it must remove)."""
     keep = sp.speckle_keep(d, v, S, md)
     ref = sp.speckle_keep_plain(d, v, S, md)
     torch.cuda.synchronize()
@@ -810,6 +821,8 @@ def compare_speckle(sp, d, v, S, md, label, stats, time_it=False):
     check(n_diff == 0, f"{label}: speckle keep-mask differs from its twin "
           f"on {n_diff} px")
     removed = int((v & ~keep).sum().item())
+    check(removed_expected is None or removed == removed_expected,
+          f"{label}: {removed} px removed, not {removed_expected}")
     msg = (f"{label}: keep-mask identical ({removed} of "
            f"{int(v.sum().item())} valid px removed)")
     if time_it:
@@ -821,10 +834,11 @@ def compare_speckle(sp, d, v, S, md, label, stats, time_it=False):
     return time_it and (ms, plain)
 
 
-def phase_speckle(stats, sc, cfg):
-    """The keep-mask kernel vs its twin on the main path's inputs (level
-    0's disparities of the flagship scene, captured from one kernel run
-    of the matcher) and on fields made to stress it."""
+def speckle_inputs(sc, cfg):
+    """The speckle filter's input on the flagship frame: level 0's
+    disparities and valid mask, captured from one kernel run of the
+    matcher, with (max_size, max_diff), and after the downsample-2
+    front-end (block minima, valid, max_size / 4, max_diff * 2)."""
     from i3dr_stereo_tpu_torch.matchers import pyramid as pyr
     from i3dr_stereo_tpu_torch.ops import speckle as sp
 
@@ -849,6 +863,16 @@ def phase_speckle(stats, sc, cfg):
     dd, vv = sp.block_min(d, v, 2)
     S2, md2 = max(S // 4, 1), float(np.float32(md) * np.float32(2))
     check(tuple(dd.shape) == (1, H_FULL // 2, W_FULL // 2), f"{dd.shape}")
+    return d, v, (S, md), (dd, vv, S2, md2)
+
+
+def phase_speckle(stats, sc, cfg):
+    """The keep-mask kernel vs its twin on the main path's inputs (level
+    0's disparities of the flagship scene, captured from one kernel run
+    of the matcher) and on fields made to stress it."""
+    from i3dr_stereo_tpu_torch.ops import speckle as sp
+
+    d, v, (S, md), (dd, vv, S2, md2) = speckle_inputs(sc, cfg)
     ms, plain = compare_speckle(
         sp, dd, vv, S2, md2, f"speckle flagship ds2 {W_FULL // 2}x"
         f"{H_FULL // 2} S={S2} max_diff={md2}", stats, time_it=True)
@@ -869,6 +893,51 @@ def phase_speckle(stats, sc, cfg):
     compare_speckle(sp, smooth, ones, 100, 0.5,
                     f"speckle smooth one-component {W_FULL}x{H_FULL}", stats,
                     time_it=True)
+
+    # what stresses the count per tile root, at ds2's shape: a serpentine
+    # through every tile (tile-root chains as deep as the frame), the
+    # one-component frame, components of exactly S pixels (dropped) and of
+    # S + 1 (kept) across tile corners, an all-invalid frame
+    H2, W2 = H_FULL // 2, W_FULL // 2
+    flat = torch.zeros((1, H2, W2), device=DEVICE)
+    snake = torch.zeros((1, H2, W2), dtype=torch.bool, device=DEVICE)
+    snake[0, ::2] = True
+    snake[0, 1::4, W2 - 1] = True
+    snake[0, 3::4, 0] = True
+    n_snake = int(snake.sum().item())
+    compare_speckle(sp, flat, snake, S2, md2, f"speckle serpentine "
+                    f"{W2}x{H2} ({n_snake} px, one component)", stats,
+                    time_it=True, removed_expected=0)
+    # a short serpentine across tile edges at S = its size (dropped) and
+    # one less (kept); the twin's rounds grow with S, so it stays short
+    short = torch.zeros_like(snake)
+    short[0, 14:19:2, 16:80] = True
+    short[0, 15, 79] = short[0, 17, 16] = True
+    n_short = int(short.sum().item())
+    for S_s, removed in ((n_short, n_short), (n_short - 1, 0)):
+        compare_speckle(sp, flat, short, S_s, md2, f"speckle {n_short}-px "
+                        f"serpentine across tile edges, S = {S_s}", stats,
+                        removed_expected=removed)
+    compare_speckle(sp, flat, torch.ones_like(snake), S2, md2,
+                    f"speckle one-component {W2}x{H2}", stats,
+                    removed_expected=0)
+    blobs = torch.full((1, H2, W2), -1.0, device=DEVICE)
+    n_exact = 0
+    for i, y in enumerate(range(30, H2 - 8, 64)):
+        for j, x in enumerate(range(30, W2 - 8, 64)):
+            value = float(4 * (i + j))      # neighbours never join
+            blobs[0, y:y + 5, x:x + 5] = value      # 25 = S2 px
+            if (i + j) % 2:
+                blobs[0, y + 5, x] = value          # 26 px
+            else:
+                n_exact += 1
+    check(S2 == 25, f"S2 = {S2}")
+    compare_speckle(sp, blobs, blobs >= 0, S2, md2, f"speckle squares of "
+                    f"{S2} and {S2 + 1} px across tile corners", stats,
+                    removed_expected=n_exact * S2)
+    compare_speckle(sp, flat, torch.zeros_like(snake), S2, md2,
+                    f"speckle all-invalid {W2}x{H2}", stats,
+                    removed_expected=0)
 
     rng = np.random.default_rng(11)
     for S in (12, 100, 200):
@@ -1010,7 +1079,9 @@ def phase_profile(pipe, left, right, card, label="flagship",
                   f"{name[:90]}", flush=True)
     return {"wall_ms": wall / frames, "busy_ms": busy / frames,
             "idle_share": 1 - busy / wall, "activities": len(spans) / frames,
-            "port_kernels_ms": ours / frames, "kernels_ms": kernels}
+            "port_kernels_ms": ours / frames, "kernels_ms": kernels,
+            "names_ms": {name: t / 1e3 / frames
+                         for name, (_, t) in per_name.items()}}
 
 
 # ---------------------------------------------------------------------------
@@ -1028,65 +1099,91 @@ def timed(fn):
     return out, a.elapsed_time(b)
 
 
+def chain_bytes(sgm, C, groups, int16_mode, S=None) -> int:
+    """Bytes the accumulating chain moves once: per launch the costs read,
+    the plane it writes, and the planes it reads (x, acc)."""
+    total = 0
+
+    def count(Cv, dy, dx, p1, p2, out, x=None, acc=None):
+        nonlocal total
+        total += Cv.numel() * (Cv.element_size() + out.element_size()) + sum(
+            t.numel() * t.element_size() for t in (x, acc) if t is not None)
+
+    sgm.fold_paths(C, groups, int16_mode, count, S)
+    return total
+
+
 def compare_volume(sgm, C, p1, p2, dirs, label, stats, pens=None,
-                   out_dtype=None, time_it=False):
-    """sgm_volume per direction and sgm_volume_sum vs their twins, and the
-    whole sgm_aggregate vs sgm_aggregate_plain: all bit-equal."""
+                   out_dtype=None, time_it=False, per_direction=False):
+    """The accumulating chain of sgm_volume launches vs its twin (S after
+    the last direction, each direction folded into S and T in place) and
+    the whole sgm_aggregate vs sgm_aggregate_plain, bit-equal; with
+    ``per_direction`` each direction's path costs alone too."""
     Cb, groups, int16_mode, (H, W, D) = sgm.plan(C, p1, p2, dirs, pens,
                                                  out_dtype)
     sizes = [len(ds) for _, ds in groups]
-    parts, plain_parts, per_dir, per_dir_plain = [], [], [], []
-    for (pp1, pp2), ds in groups:
-        for dy, dx in ds:
-            k = sgm.sgm_volume_path(Cb, dy, dx, pp1, pp2)
-            p, ms_plain = timed(
-                lambda: sgm.sgm_volume_path_plain(Cb, dy, dx, pp1, pp2))
-            err = (k - p).abs().max().item()
-            stats["sgm_volume"]["err"] = max(stats["sgm_volume"]["err"], err)
-            check(torch.equal(k, p), f"{label}: sgm_volume {(dy, dx)} "
-                  f"differs from its twin (max {err})")
-            parts.append(k)
-            plain_parts.append(p)
-            if time_it:
-                per_dir.append(gpu_ms(
-                    lambda: sgm.sgm_volume_path(Cb, dy, dx, pp1, pp2)))
-                per_dir_plain.append(ms_plain)
-    S = sgm.sgm_volume_sum(parts, sizes, int16_mode)
-    S_plain, sum_plain_ms = timed(
-        lambda: sgm.sgm_volume_sum_plain(plain_parts, sizes, int16_mode))
+    if per_direction:
+        for (pp1, pp2), ds in groups:
+            for dy, dx in ds:
+                k = torch.empty(Cb.shape, device=Cb.device)
+                sgm.sgm_volume_step(Cb, dy, dx, pp1, pp2, k)
+                p = sgm.sgm_volume_path_plain(Cb, dy, dx, pp1, pp2)
+                err = (k - p).abs().max().item()
+                stats["sgm_volume"]["err"] = max(stats["sgm_volume"]["err"],
+                                                 err)
+                check(torch.equal(k, p), f"{label}: sgm_volume {(dy, dx)} "
+                      f"path costs differ from the twin's (max {err})")
+                del k, p
+    S = sgm.fold_paths(Cb, groups, int16_mode)
+    S_plain, plain_ms = timed(lambda: sgm.fold_paths(
+        Cb, groups, int16_mode, sgm.sgm_volume_step_plain))
     err = (S.double() - S_plain.double()).abs().max().item()
-    stats["sgm_volume_sum"]["err"] = max(stats["sgm_volume_sum"]["err"], err)
-    check(torch.equal(S, S_plain), f"{label}: sgm_volume_sum differs from "
-          f"its twin (max {err})")
+    stats["sgm_volume"]["err"] = max(stats["sgm_volume"]["err"], err)
+    check(S.dtype == S_plain.dtype and torch.equal(S, S_plain),
+          f"{label}: the sgm_volume chain differs from its twin (max {err})")
     whole = sgm.sgm_aggregate(C, p1, p2, dirs, pens, out_dtype=out_dtype)
     ref = S_plain[:, :H, :W, :D]
     check(torch.equal(whole, ref if C.ndim == 4 else ref[0]),
           f"{label}: sgm_aggregate differs from sgm_aggregate_plain")
     big = (ref >= (9999 if int16_mode else 5e8)).float().mean().item()
-    print(f"{label}: {len(parts)} sgm_volume directions in groups {sizes}, "
-          f"sgm_volume_sum and sgm_aggregate bit-equal to their twins "
-          f"({str(S.dtype)[6:]} S, {big:.4f} of it invalid-level)",
+    print(f"{label}: {sum(sizes)} sgm_volume directions in groups {sizes}, "
+          f"the accumulating chain and sgm_aggregate bit-equal to their twins"
+          f" ({str(S.dtype)[6:]} S, {big:.4f} of it invalid-level)",
           flush=True)
+    del S, S_plain, whole, ref
     if time_it:
-        sum_ms = gpu_ms(lambda: sgm.sgm_volume_sum(parts, sizes, int16_mode))
-        whole_ms = gpu_ms(lambda: sgm.sgm_aggregate(C, p1, p2, dirs, pens,
-                                                    out_dtype=out_dtype))
-        stats["sgm_volume"]["ms"] = sum(per_dir) / len(per_dir)
-        stats["sgm_volume"]["plain_ms"] = sum(per_dir_plain) / len(per_dir)
-        stats["sgm_volume_sum"]["ms"] = sum_ms
-        stats["sgm_volume_sum"]["plain_ms"] = sum_plain_ms
+        # every launch of the chain, timed inside it (median of 5 chains)
+        per_launch = []
+        for _ in range(5):
+            evs = []
+
+            def step(*a, **kw):
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                sgm.sgm_volume_step(*a, **kw)
+                e1.record()
+                evs.append((a[1:3], e0, e1))
+
+            sgm.fold_paths(Cb, groups, int16_mode, step)
+            torch.cuda.synchronize()
+            per_launch.append([e0.elapsed_time(e1) for _, e0, e1 in evs])
+        launch_ms = [statistics.median(t) for t in zip(*per_launch)]
+        ms = gpu_ms(lambda: sgm.fold_paths(Cb, groups, int16_mode))
+        stats["sgm_volume"]["ms"], stats["sgm_volume"]["plain_ms"] = (
+            ms, plain_ms)
         n = Cb.numel()
-        # one direction: C in, a float32 partial out; the sum: every
-        # partial in, S out
-        set_bound(stats, "sgm_volume", n * (Cb.element_size() + 4), 10 * n)
-        set_bound(stats, "sgm_volume_sum", 4 * n * (len(parts) + 1),
-                  n * len(parts))
-        print("sgm_volume ms per direction " + ", ".join(
-            f"{o}: {a:.3f} (plain {b:.1f})" for o, a, b in zip(
-                [d for _, ds in groups for d in ds], per_dir,
-                per_dir_plain)), flush=True)
-        print(f"sgm_volume_sum {sum_ms:.3f} ms (plain {sum_plain_ms:.1f}); "
-              f"whole sgm_aggregate {whole_ms:.3f} ms", flush=True)
+        nbytes = chain_bytes(sgm, Cb, groups, int16_mode)
+        # ~10 operations an element a direction (the step) and one or two
+        # for the op
+        set_bound(stats, "sgm_volume", nbytes, 12 * n * sum(sizes))
+        print(f"the whole chain ({sum(sizes)} launches, sum included) "
+              f"{ms:.3f} ms (plain {plain_ms:.1f}); {nbytes / 1e9:.3f} GB "
+              f"moved once, {nbytes / PEAK_BYTES_S * 1e3:.4f} ms at the HBM "
+              f"peak, {nbytes / ms / 1e6:.1f} GB/s reached; per launch "
+              + ", ".join(f"{d}: {t:.3f}" for (d, _, _), t in zip(evs,
+                                                                   launch_ms)),
+              flush=True)
 
 
 def phase_volume(stats):
@@ -1109,10 +1206,14 @@ def phase_volume(stats):
         return torch.tensor(c, device=dev)
 
     # the SGBM configuration's volume: 1024x1280, D = 128, 8 paths
-    compare_volume(sgm, volume((1, H_SGBM, W_SGBM, 128), "float", 16),
-                   200.0, 400.0, sgm.DIRECTIONS_8,
-                   f"sgm_volume {W_SGBM}x{H_SGBM}x128 f32 8 paths",
-                   stats, time_it=True)
+    C = volume((1, H_SGBM, W_SGBM, 128), "float", 16)
+    compare_volume(sgm, C, 200.0, 400.0, sgm.DIRECTIONS_8,
+                   f"sgm_volume {W_SGBM}x{H_SGBM}x128 f32 8 paths", stats,
+                   time_it=True, per_direction=True)
+    compare_volume(sgm, C, 200.0, 400.0, sgm.DIRECTIONS_8,
+                   f"sgm_volume {W_SGBM}x{H_SGBM}x128 f32 8 paths int16 "
+                   f"mode", stats, out_dtype=torch.int16)
+    del C
     # census-scale costs (integer hamming, D = 64 padded to 128), 4 paths
     compare_volume(sgm, volume((1, H_SGBM, W_SGBM, 64), "int", 16), 0.1,
                    0.8, sgm.DIRECTIONS_4,
@@ -1121,15 +1222,28 @@ def phase_volume(stats):
     # uint8 with the 255 sentinel into the int16 mode
     compare_volume(sgm, volume((1, 256, 320, 64), "u8", 8), 7.0, 86.0,
                    sgm.DIRECTIONS_8, "sgm_volume 320x256x64 uint8 int16 mode",
+                   stats, out_dtype=torch.int16, per_direction=True)
+    # W * D this wide splits a three-direction family into groups of one
+    # (the TPU's VMEM rule: one int16 clamp a direction); two directions
+    # still fit one group
+    check(not sgm._vmem_ok_vertical(1160, 512, 3, 1), "no split at 1160x512")
+    compare_volume(sgm, volume((1, 8, 1160, 400), "u8"), 7.0, 86.0,
+                   ((0, 1), (1, 0), (1, 1), (1, -1), (-1, 0), (-1, 1)),
+                   "sgm_volume 1160x8x400 uint8 int16 mode, split families",
                    stats, out_dtype=torch.int16)
     # ragged, batched, per-direction penalties: two groups in each
-    # vertical family
+    # vertical family; a vertical group first, without (0, 1) / (0, -1)
     pens = [(1.5, 9.0), (2.0, 11.0), (1.5, 9.0), (2.0, 11.0), (0.75, 30.0),
             (2.0, 11.0), (1.5, 9.0), (0.5, 4.0)]
-    compare_volume(sgm, volume((2, 131, 45, 130), "float", 5), 0.0, 0.0,
-                   sgm.DIRECTIONS_8,
+    Cr = volume((2, 131, 45, 130), "float", 5)
+    compare_volume(sgm, Cr, 0.0, 0.0, sgm.DIRECTIONS_8,
                    "sgm_volume ragged 2x45x131x130 per-direction penalties",
-                   stats, pens=pens)
+                   stats, pens=pens, per_direction=True)
+    for od in (None, torch.int16):
+        compare_volume(sgm, Cr, 1.5, 9.0, ((1, 0), (1, 1), (1, -1), (-1, 0)),
+                       f"sgm_volume ragged 2x45x131x130 a group first "
+                       f"{'int16' if od else 'float32'} mode", stats,
+                       out_dtype=od)
 
 
 # ---------------------------------------------------------------------------
@@ -1144,13 +1258,13 @@ def sgbm_cfg(params):
         num_directions=8, subpixel=True)
 
 
-def phase_sgbm(stats, card):
-    from i3dr_stereo_tpu_torch import _build
+def sgbm_pipe():
+    """The SGBM frame: ``accuracy_bench.py:sgbm_1280``'s scene and config,
+    raw uint8 in, rectified on the ideal rig. Returns (pipe, left, right,
+    scene, cfg, cloud)."""
     from i3dr_stereo_tpu_torch.config import params
     from i3dr_stereo_tpu_torch.core import camera
     from i3dr_stereo_tpu_torch.io.synthetic import layered_scene
-    from i3dr_stereo_tpu_torch.matchers import registry
-    from i3dr_stereo_tpu_torch.ops import sgm
     from i3dr_stereo_tpu_torch.pipeline.stereo_pipeline import StereoPipeline
 
     cfg = sgbm_cfg(params)
@@ -1162,9 +1276,22 @@ def phase_sgbm(stats, card):
     check(pipe.rectify_inputs, "the SGBM frame must rectify")
     left = torch.tensor(raw_u8(sc.left), device=DEVICE)
     right = torch.tensor(raw_u8(sc.right), device=DEVICE)
+    return pipe, left, right, sc, cfg, cloud
+
+
+def phase_sgbm(stats, card):
+    from i3dr_stereo_tpu_torch import _build
+    from i3dr_stereo_tpu_torch.config import params
+    from i3dr_stereo_tpu_torch.io.synthetic import layered_scene
+    from i3dr_stereo_tpu_torch.matchers import registry
+    from i3dr_stereo_tpu_torch.ops import sgm
+    from i3dr_stereo_tpu_torch.pipeline.stereo_pipeline import StereoPipeline
+
+    pipe, left, right, sc, cfg, cloud = sgbm_pipe()
+    rig = pipe.rig
 
     res = drive_frame(pipe, left, right, sc, SGBM_KERNELS, "SGBM frame",
-                      stats, record=("sgm_volume", "sgm_volume_sum"))
+                      stats, record=("sgm_volume",))
 
     # the same matcher through the plain twins on the card, small scene
     small = layered_scene(256, 320, max_disp=40, seed=2)
@@ -1252,19 +1379,23 @@ def compare_fused(name, kernel, plain, args, kw, label, stats):
 
 def time_fused(name, kernel, args, kw, plain_ms, nbytes_in, ops_per_pair,
                stats, label, card, record=True, popc_per_pair=0):
-    """Time one fused forward kernel (float32 S) beside its twin's time from
-    compare_fused; with ``record`` the numbers go into the kernel's entry."""
-    kw = dict(kw, out_dtype=torch.float32)
+    """Time one fused forward kernel with the int16 path costs the lean
+    path asks for (and, for comparison, float32) beside its twin's time
+    from compare_fused; with ``record`` the numbers go into the kernel's
+    entry."""
+    ms32 = gpu_ms(lambda: kernel(*args, **dict(kw, out_dtype=torch.float32)))
+    kw = dict(kw, out_dtype=torch.int16)
     ms = gpu_ms(lambda: kernel(*args, **kw))
     C, _ = kernel(*args, **kw)
     n = C.numel()
-    nbytes = nbytes_in + 5 * n      # inputs in; uint8 C and float32 L out
+    nbytes = nbytes_in + 3 * n      # inputs in; uint8 C and int16 S out
     if record:
         stats[name]["ms"], stats[name]["plain_ms"] = ms, plain_ms
         set_bound(stats, name, nbytes, ops_per_pair * n,
                   npopc=popc_per_pair * n)
-    print(f"{label} [{card}]: {name} {ms:.4f} ms (plain twin {plain_ms:.1f} "
-          f"ms; {nbytes / 1e9:.3f} GB moved once, "
+    print(f"{label} [{card}]: {name} {ms:.4f} ms with int16 S, {ms32:.4f} "
+          f"with float32 (plain twin {plain_ms:.1f} ms; int16: "
+          f"{nbytes / 1e9:.3f} GB moved once, "
           f"{nbytes / PEAK_BYTES_S * 1e3:.4f} ms at the HBM peak, "
           f"{nbytes / ms / 1e6:.1f} GB/s reached"
           + (f"; {popc_per_pair * n / 1e6:.0f} M popcounts, "
@@ -1408,12 +1539,15 @@ def phase_fused(stats, card):
                          stats)
     check(bool((C[C < 255] % 2 == 1).any()), "BT: no half-sample cost")
 
-    # the whole aggregations at the two main paths' shapes
-    compare_whole(fcs.fused_census_sgm, (cl0, cr0, 32),
-                  dict(base=-16, per_direction_penalties=[(cfg.p1, cfg.p2)] * 4,
-                       directions=sgm.DIRECTIONS_4),
-                  f"fused_census_sgm {W_FULL}x{H_FULL}x32 4 paths int16",
-                  card)
+    # the whole aggregations at the two main paths' shapes: J's int16 plane
+    # (int16 mode) or its float32 plane folded into by the sgm_volume chain
+    for od in (torch.int16, torch.float32):
+        compare_whole(fcs.fused_census_sgm, (cl0, cr0, 32),
+                      dict(base=-16,
+                           per_direction_penalties=[(cfg.p1, cfg.p2)] * 4,
+                           directions=sgm.DIRECTIONS_4, out_dtype=od),
+                      f"fused_census_sgm {W_FULL}x{H_FULL}x32 4 paths "
+                      f"{str(od)[6:]}", card)
     compare_whole(fcs.fused_bt_sgm, (lp, rp, 128),
                   dict(p1=200.0, p2=400.0, directions=sgm.DIRECTIONS_8),
                   f"fused_bt_sgm {W_SGBM}x{H_SGBM}x128 8 paths int16", card)

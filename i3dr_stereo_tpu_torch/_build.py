@@ -38,9 +38,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # kernel name -> launches since the last reset_launches()
 LAUNCHES = {"census_cost": 0, "sgm_sweep": 0, "sgm_sweep_wta": 0,
             "row_gather": 0, "remap": 0, "speckle_ccl": 0, "sgm_volume": 0,
-            "sgm_volume_sum": 0, "fused_census_fwd": 0, "fused_bt_fwd": 0}
+            "fused_census_fwd": 0, "fused_bt_fwd": 0}
 
-_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry -> argtypes (pointers and the stream as c_void_p: a bare Python
 # int would be passed as a 32-bit int and cut)
 _SIGNATURES = {
@@ -60,11 +60,10 @@ _SIGNATURES = {
     "i3dr_remap": (_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # d, valid, labels, sizes, keep, B, H, W, max_size, max_diff, stream
     "i3dr_speckle_ccl": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
-    # C, u8, out, B, H, W, D, dy, dx, p1, p2, stream
-    "i3dr_sgm_volume": (_P, _I, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P),
-    # parts (host array of device pointers), n_parts, group_end (host
-    # int array), n_groups, int16_mode, out, n, stream
-    "i3dr_sgm_volume_sum": (_P, _I, _P, _I, _I, _P, _L, _P),
+    # C, u8, out, out_i32, x (or null), acc (or null), acc_kind, B, H, W,
+    # D, dy, dx, p1, p2, stream
+    "i3dr_sgm_volume": (_P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                        _F, _F, _P),
     # cl, cr, base, th, C, S, s_i16, B, H, W, NW, D, min_disp, p1, p2, stream
     "i3dr_fused_census_fwd": (_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I,
                               _I, _F, _F, _P),
@@ -145,6 +144,18 @@ def library() -> ctypes.CDLL:
     lib.i3dr_error_string.argtypes = [ctypes.c_int]
     lib.i3dr_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device``. The entry points run on the card
+    unless the caller asks for the CPU, and never fall back to it: a CUDA
+    device that is not there raises."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {dev} requested but CUDA is not "
+                           "available (pass device=\"cpu\" for the plain "
+                           "torch twins)")
+    return dev
 
 
 def require_cuda(*tensors: torch.Tensor) -> None:

@@ -13,6 +13,7 @@ import dataclasses
 
 import torch
 
+from i3dr_stereo_tpu_torch._build import resolve_device
 from i3dr_stereo_tpu_torch.config.params import (
     ALGORITHM_DEFAULTS,
     Algorithm,
@@ -55,11 +56,15 @@ class StereoMatcher:
     """Stateful wrapper: a config and the match calls. Parameter changes
     never rebuild an engine (cf. I3DRSGM.cpp:630-654's destroy/recreate
     per setter). ``lean`` selects the reference's second SGM backend
-    (the fused cost + SGM path, ``matchers/registry.py``)."""
+    (the fused cost + SGM path, ``matchers/registry.py``). ``device``:
+    where the matching runs, the card unless the caller asks for the CPU
+    (a missing card raises; the CPU runs the plain torch twins)."""
 
-    def __init__(self, config: MatcherConfig, *, lean: bool = False):
+    def __init__(self, config: MatcherConfig, *, lean: bool = False,
+                 device: torch.device | str = "cuda"):
         self._config = config.sanitize()
         self.lean = bool(lean)
+        self.device = resolve_device(device)
 
     @property
     def config(self) -> MatcherConfig:
@@ -72,9 +77,18 @@ class StereoMatcher:
         """Live reconfigure (the dynamic_reconfigure path)."""
         self._config = self._config.replace(**kw)
 
+    def _input(self, image) -> torch.Tensor:
+        """An image on the matcher's device; a CUDA tensor stays where it
+        is on a CUDA matcher."""
+        x = torch.as_tensor(image)
+        if x.device.type == "cuda" and self.device.type == "cuda":
+            return x
+        return x.to(self.device)
+
     def match(self, left, right) -> MatchResult:
-        """(H, W) or (B, H, W) images (mono or BGR, uint8 or float) ->
-        left-anchored MatchResult on the images' device."""
+        """(H, W) or (B, H, W) images (mono or BGR, uint8 or float; numpy
+        or tensors) -> left-anchored MatchResult on the matcher's
+        device."""
         from i3dr_stereo_tpu_torch.matchers.registry import MATCHER_REGISTRY
 
         cfg = self._config
@@ -83,8 +97,8 @@ class StereoMatcher:
                 "downsample_scale != 1 (the reference's cubic resize) is "
                 "not ported yet (ROADMAP.md Queue 1 item 5)")
         return MATCHER_REGISTRY[cfg.algorithm](
-            to_mono_f32(torch.as_tensor(left)),
-            to_mono_f32(torch.as_tensor(right)), cfg, lean=self.lean)
+            to_mono_f32(self._input(left)), to_mono_f32(self._input(right)),
+            cfg, lean=self.lean)
 
     # reference-compatible aliases (abstractStereoMatcher.h)
     forward_match = match
@@ -92,8 +106,7 @@ class StereoMatcher:
     def backward_match(self, left, right) -> MatchResult:
         """Right-anchored disparity: match with swapped, mirrored images
         (the createRightMatcher trick, matcherOpenCVBlock.cpp:46-51)."""
-        l = torch.as_tensor(left)
-        r = torch.as_tensor(right)
+        l, r = self._input(left), self._input(right)
         # mirror the width axis (a BGR image keeps its channel order; the
         # reference flips the last axis, channels included)
         w_axis = -2 if l.ndim == 3 and l.shape[-1] == 3 else -1
@@ -102,10 +115,10 @@ class StereoMatcher:
                            valid=res.valid.flip(-1))
 
 
-def create_matcher(config: MatcherConfig | Algorithm, *,
-                   lean: bool = False) -> StereoMatcher:
+def create_matcher(config: MatcherConfig | Algorithm, *, lean: bool = False,
+                   device: torch.device | str = "cuda") -> StereoMatcher:
     """Factory keyed by the reference's algorithm enum
     (init_matcher, generate_disparity.cpp:263-331)."""
     if isinstance(config, Algorithm):
         config = ALGORITHM_DEFAULTS[config]
-    return StereoMatcher(config, lean=lean)
+    return StereoMatcher(config, lean=lean, device=device)

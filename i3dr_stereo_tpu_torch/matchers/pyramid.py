@@ -31,7 +31,7 @@ A lean level (:func:`_match_level_lean`) replaces 1-4: edge-pad to
 multiples of 8, warp the right image by the whole prediction with a
 plain gather, so the residual window is uniform (base -K/2); census
 both; ``fused_census_sgm`` (kernel ``fused_census_fwd``, then
-``sgm_volume`` and ``sgm_volume_sum`` over the uint8 volume); plain WTA
+``sgm_volume`` over the uint8 volume, folded into its int16 plane); plain WTA
 on the int32 sums; and backmatching by a forward splat of the absolute
 map (:func:`_roundtrip_check`).
 

@@ -13,7 +13,7 @@
 Every backend takes (H, W) or (B, H, W) float32 images and returns a
 MatchResult. The SGM of SGBM and dense I3DRSGM is
 :func:`~i3dr_stereo_tpu_torch.ops.sgm.sgm_aggregate` (the ``sgm_volume``
-kernels on a CUDA tensor), with the semantics of the TPU's default
+kernel on a CUDA tensor), with the semantics of the TPU's default
 backend. The reference's backend switch (``I3DR_SGM_BACKEND``) is one
 keyword here, ``lean`` (default False), on every backend and on
 :func:`compute_disparity`: ``lean=True`` computes what the reference

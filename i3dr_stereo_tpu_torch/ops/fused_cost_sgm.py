@@ -5,16 +5,18 @@ argument).
 
 One sweep builds the uint8 cost volume C *and* runs the W->E recurrence
 on the unclamped cost, so the float cost never reaches memory; the other
-directions then read C (255 = invalid) through the volume kernels of
-:mod:`~i3dr_stereo_tpu_torch.ops.sgm` at the exact D.
+directions then read C (255 = invalid) through the volume kernel of
+:mod:`~i3dr_stereo_tpu_torch.ops.sgm` at the exact D, each folded into
+the forward pass's plane (float32, or in int16 mode int16, as the
+reference asks its kernel for) in place.
 
 - :func:`fused_census_horizontal` — census hamming cost from word planes
   (kernel ``fused_census_fwd``, the TPU's ``_fused_fwd_kernel``);
 - :func:`fused_bt_horizontal` — pixelwise Birchfield-Tomasi cost in
   doubled units (kernel ``fused_bt_fwd``, the TPU's ``_fused_bt_kernel``);
 - :func:`fused_census_sgm`, :func:`fused_bt_sgm` — the full aggregation:
-  the int32 sum of int16-stored partials (or a float32 sum) in the TPU's
-  order, the forward pass first.
+  the int32 sum of int16-stored group totals (or a float32 sum) in the
+  TPU's order, the forward pass first.
 
 For pixel (y, x) and disparity index d the right source column is
 ``x - base[y // th] - min_disp - d``: one window base per tile of ``th``
@@ -44,10 +46,9 @@ from i3dr_stereo_tpu_torch.ops.sgm import (
     U8_SENTINEL,
     _groups,
     _step,
-    sgm_volume_path,
-    sgm_volume_path_plain,
-    sgm_volume_sum,
-    sgm_volume_sum_plain,
+    fold_paths,
+    sgm_volume_step,
+    sgm_volume_step_plain,
 )
 from i3dr_stereo_tpu_torch.ops.sgm_fused_t import U8_CLAMP, _popcount32
 
@@ -249,20 +250,19 @@ def fused_bt_horizontal(left: torch.Tensor, right: torch.Tensor, base, D: int,
 
 def _aggregate(forward, W: int, D: int, directions, pen, out_dtype,
                plain: bool):
-    """Forward pass, then the remaining directions over its uint8 C, summed
-    in the TPU's order: S_fwd, (0, -1), the top-down family, the bottom-up
-    family, each family in groups of equal penalties (split where the
-    TPU's VMEM rule splits them, at the exact D and the given W)."""
+    """Forward pass, then the remaining directions over its uint8 C folded
+    into its path costs in the TPU's order: S_fwd, (0, -1), the top-down
+    family, the bottom-up family, each family in groups of equal
+    penalties (split where the TPU's VMEM rule splits them, at the exact
+    D and the given W). The forward pass stores its path costs in
+    ``out_dtype``, as the reference asks its kernel to."""
     if (0, 1) not in directions:
         raise ValueError("the fused path needs the W->E direction (0, 1)")
     _check_out(D, out_dtype)
-    path = sgm_volume_path_plain if plain else sgm_volume_path
-    total = sgm_volume_sum_plain if plain else sgm_volume_sum
-    C, L = forward(*pen[(0, 1)])
+    C, S = forward(*pen[(0, 1)], out_dtype)
     groups = _groups(directions, pen, W, D, 1)[1:]
-    parts = [L] + [path(C, dy, dx, *pp) for pp, ds in groups for dy, dx in ds]
-    S = total(parts, [1] + [len(ds) for _, ds in groups],
-              out_dtype == torch.int16)
+    S = fold_paths(C, groups, out_dtype == torch.int16,
+                   sgm_volume_step_plain if plain else sgm_volume_step, S)
     return S, C
 
 
@@ -275,7 +275,7 @@ def fused_bt_sgm(left: torch.Tensor, right: torch.Tensor, D: int, *,
     images. Returns (S, C): costs and S are in DOUBLED units; p1/p2 come
     in normal cost units and are doubled here. WTA, parabolic subpixel
     and uniqueness are scale-invariant. S is the int32 sum of
-    int16-stored partials, or float32 for ``out_dtype=torch.float32``."""
+    int16-stored group totals, or float32 for ``out_dtype=torch.float32``."""
     directions = tuple(tuple(d) for d in (directions or DIRECTIONS_8))
     B, H, W = left.shape
     pp = (2.0 * float(p1), 2.0 * float(p2))
@@ -283,9 +283,9 @@ def fused_bt_sgm(left: torch.Tensor, right: torch.Tensor, D: int, *,
     base = torch.zeros((H // row_tile(H),), dtype=torch.int32,
                        device=left.device)
 
-    def forward(q1, q2):
+    def forward(q1, q2, od):
         return fwd(left, right, base, D, q1, q2, min_disp=min_disp,
-                   out_dtype=torch.float32)
+                   out_dtype=od)
 
     return _aggregate(forward, W, D, directions,
                       {d: pp for d in directions}, out_dtype, plain)
@@ -302,7 +302,7 @@ def fused_census_sgm(cl_census: torch.Tensor, cr_census: torch.Tensor, D: int,
     uniform window base (e.g. -K // 2 for residual matching against a
     warped right view). Returns (S, C): the summed path costs over
     ``directions`` (default the 4-path set) and the uint8 cost volume. S
-    is the int32 sum of int16-stored partials, or float32 for
+    is the int32 sum of int16-stored group totals, or float32 for
     ``out_dtype=torch.float32``."""
     directions = tuple(tuple(d) for d in (directions or DIRECTIONS_4))
     if per_direction_penalties is None:
@@ -317,8 +317,8 @@ def fused_census_sgm(cl_census: torch.Tensor, cr_census: torch.Tensor, D: int,
     base_arr = torch.full((H // row_tile(H),), int(base), dtype=torch.int32,
                           device=clw.device)
 
-    def forward(q1, q2):
+    def forward(q1, q2, od):
         return fwd(clw, crw, base_arr, D, q1, q2, min_disp=min_disp,
-                   out_dtype=torch.float32)
+                   out_dtype=od)
 
     return _aggregate(forward, W, D, directions, pen, out_dtype, plain)

@@ -103,11 +103,13 @@ class RectifyMap:
 
 def make_rectify_map(cam: CameraModel, *, interpolation: str = "cubic",
                      map_xy: tuple[np.ndarray, np.ndarray] | None = None,
-                     device: torch.device | str = "cpu") -> RectifyMap:
-    """Build the remap structure on ``device`` (host work, once).
+                     device: torch.device | str = "cuda") -> RectifyMap:
+    """Build the remap structure on ``device`` (host work, once; the card
+    unless the caller asks for the CPU, and a missing card raises).
 
     ``map_xy`` overrides the calibration-derived inverse map — used for
     generic remap applications (e.g. unit tests, custom warps)."""
+    device = _build.resolve_device(device)
     if map_xy is None:
         map_x, map_y = inverse_rectify_map_xy(cam)
     else:

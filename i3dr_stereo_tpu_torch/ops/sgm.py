@@ -8,9 +8,8 @@ shares.
 call run by default. It has the TPU's semantics (the JAX package's
 default backend there), edges included. The reference's second backend,
 the lean fused path, is :mod:`~i3dr_stereo_tpu_torch.ops.fused_cost_sgm`
-behind the matchers' one ``lean`` argument; it calls
-:func:`sgm_volume_path` and :func:`sgm_volume_sum` here at the exact D,
-without the padding below:
+behind the matchers' one ``lean`` argument; it calls :func:`fold_paths`
+here at the exact D, without the padding below:
 
 - the volume is padded as the TPU pads it: H and W to multiples of 8
   with zero cost, then D to a multiple of 128 with the invalid cost (1e9
@@ -19,13 +18,14 @@ without the padding below:
   parabolic subpixel next to an invalid disparity reads; the result is
   cropped back;
 - one path direction per launch of the ``sgm_volume`` kernel
-  (``csrc/sgm_volume.cu``), each writing its float32 path costs;
-- the sum in the TPU's order (``sgm_volume_sum``): the horizontal
+  (``csrc/sgm_volume.cu``), each folding its path costs into the running
+  sum S in place (:func:`fold_paths`), in the TPU's order: the horizontal
   directions (0, 1) then (0, -1), then the top-down and the bottom-up
   family, each family in groups of equal penalties (split where the
-  TPU's VMEM rule splits them), a group's total summed first. With
-  ``out_dtype=torch.int16`` each group total is stored as the TPU stores
-  it, ``trunc(min(total, 10000))``, and S is their int32 sum.
+  TPU's VMEM rule splits them), a group's total summed first in a
+  float32 plane T. With ``out_dtype=torch.int16`` each group total is
+  stored as the TPU stores it, ``trunc(min(total, 10000))``, and S is
+  their int32 sum. No per-direction volume is held.
 
 A CPU tensor runs the plain twin :func:`sgm_aggregate_plain`; a CUDA
 tensor launches the kernels or raises.
@@ -33,8 +33,6 @@ tensor launches the kernels or raises.
 
 from __future__ import annotations
 
-import ctypes
-import itertools
 from typing import Sequence, Tuple
 
 import torch
@@ -125,7 +123,7 @@ def plan(C: torch.Tensor, p1, p2, directions,
 
 
 # ---------------------------------------------------------------------------
-# sgm_volume: one path direction
+# sgm_volume: one path direction, folded into the running sum
 # ---------------------------------------------------------------------------
 
 def _step(prev, c, p1: float, p2: float):
@@ -142,9 +140,10 @@ def _step(prev, c, p1: float, p2: float):
 
 def sgm_volume_path_plain(C: torch.Tensor, dy: int, dx: int, p1: float,
                           p2: float) -> torch.Tensor:
-    """Plain twin of the ``sgm_volume`` kernel: a Python loop over the
-    scan axis, vectorised across the rest; diagonal paths shift the
-    carry one column per row with a zero entering column."""
+    """float32 path costs L of direction (dy, dx), unclamped, in plain
+    torch: a Python loop over the scan axis, vectorised across the rest;
+    diagonal paths shift the carry one column per row with a zero
+    entering column."""
     c = (torch.where(C == U8_SENTINEL, BIG, C.to(torch.float32))
          if C.dtype == torch.uint8 else C)
     B, H, W, D = c.shape
@@ -166,37 +165,82 @@ def sgm_volume_path_plain(C: torch.Tensor, dy: int, dx: int, p1: float,
     return out
 
 
-def sgm_volume_path(C: torch.Tensor, dy: int, dx: int, p1: float,
-                    p2: float) -> torch.Tensor:
-    """float32 path costs L of direction (dy, dx) (the path comes from
-    (y-dy, x-dx)), unclamped, over a (B, H, W, D) volume at exactly its
-    D (at most 512): float32 (invalid = 1e9) or uint8 (255 = invalid). A
-    CPU tensor takes the plain version; a CUDA tensor launches the
-    ``sgm_volume`` kernel (or raises)."""
-    if C.device.type == "cpu":
-        return sgm_volume_path_plain(C, dy, dx, p1, p2)
+def _check_planes(C, out, x, acc) -> None:
     if C.ndim != 4 or C.dtype not in (torch.float32, torch.uint8):
         raise ValueError(f"expected a float32 or uint8 (B, H, W, D) volume, "
                          f"got {tuple(C.shape)} {C.dtype}")
-    B, H, W, D = C.shape
-    if not 1 <= D <= MAX_D:
+    if not 1 <= C.shape[-1] <= MAX_D:
         raise ValueError(f"sgm_volume takes 1 to {MAX_D} disparities, got "
-                         f"{D}")
-    _build.require_cuda(C)
-    out = torch.empty(C.shape, dtype=torch.float32, device=C.device)
+                         f"{C.shape[-1]}")
+    int_out = out.dtype == torch.int32
+    accs = (torch.int32, torch.int16) if int_out else (torch.float32,)
+    if out.dtype not in (torch.float32, torch.int32) \
+            or (x is not None and x.dtype != torch.float32) \
+            or (acc is not None and acc.dtype not in accs) \
+            or (acc is not None and acc.dtype == torch.int16
+                and C.dtype != torch.uint8) \
+            or any(t is not None and t.shape != C.shape
+                   for t in (out, x, acc)):
+        raise ValueError(
+            f"sgm_volume writes a float32 or int32 plane of the volume's "
+            f"shape from a float32 x and a float32 (float32 out) or int32 / "
+            f"int16 (int32 out, int16 with uint8 costs) acc, got out "
+            f"{out.dtype}, x {None if x is None else x.dtype}, acc "
+            f"{None if acc is None else acc.dtype}")
+
+
+def sgm_volume_step_plain(C: torch.Tensor, dy: int, dx: int, p1: float,
+                          p2: float, out: torch.Tensor, x=None,
+                          acc=None) -> None:
+    """Plain twin of one ``sgm_volume`` launch (see
+    :func:`sgm_volume_step`), with torch arithmetic on any device."""
+    v = sgm_volume_path_plain(C, dy, dx, p1, p2)
+    if x is not None:
+        v = x + v
+    if out.dtype == torch.int32:
+        v = torch.clamp(v, max=CLAMP).to(torch.int32)
+        if acc is not None:
+            v = acc.to(torch.int32) + v
+    elif acc is not None:
+        v = acc + v
+    out.copy_(v)
+
+
+def sgm_volume_step(C: torch.Tensor, dy: int, dx: int, p1: float, p2: float,
+                    out: torch.Tensor, x=None, acc=None) -> None:
+    """One path direction (dy, dx) (the path comes from (y-dy, x-dx)) of
+    a (B, H, W, D) volume at exactly its D (at most 512), float32
+    (invalid = 1e9) or uint8 (255 = invalid), folded into ``out``:
+
+        v = L, or x + L                       (x: float32)
+        v = v, or int(min(v, 10000))          (int32 out)
+        out = v, or acc + v                   (acc: float32, int32, int16)
+
+    with the float32 path costs L unclamped. ``x`` and ``acc`` may be
+    ``out`` itself (in place). A CPU tensor takes the plain version; a
+    CUDA tensor launches the ``sgm_volume`` kernel (or raises)."""
+    if C.device.type == "cpu":
+        return sgm_volume_step_plain(C, dy, dx, p1, p2, out, x, acc)
+    _check_planes(C, out, x, acc)
+    _build.require_cuda(C, out, *(t for t in (x, acc) if t is not None))
+    B, H, W, D = C.shape
+    acc_kind = (0 if acc is None else
+                {torch.float32: 1, torch.int32: 2, torch.int16: 3}[acc.dtype])
     _build.launch("i3dr_sgm_volume", "sgm_volume", C.device,
                   C.data_ptr(), int(C.dtype == torch.uint8), out.data_ptr(),
+                  int(out.dtype == torch.int32),
+                  None if x is None else x.data_ptr(),
+                  None if acc is None else acc.data_ptr(), acc_kind,
                   B, H, W, D, int(dy), int(dx), float(p1), float(p2),
                   _build.stream_of(C))
-    return out
 
-
-# ---------------------------------------------------------------------------
-# sgm_volume_sum: the partials in the TPU's order
-# ---------------------------------------------------------------------------
 
 def sgm_volume_sum_plain(parts, group_sizes, int16_mode: bool):
-    """Plain twin of the ``sgm_volume_sum`` kernel."""
+    """The sum of per-direction float32 partials in the TPU's order,
+    ``group_sizes`` consecutive partials per group: each group's total in
+    order, then the totals in order (float32), or in int16 mode the int32
+    sum of ``trunc(min(total, 10000))``. The reference that
+    :func:`fold_paths` is held against."""
     S = None
     k = 0
     for n in group_sizes:
@@ -210,48 +254,42 @@ def sgm_volume_sum_plain(parts, group_sizes, int16_mode: bool):
     return S
 
 
-def sgm_volume_sum(parts, group_sizes, int16_mode: bool) -> torch.Tensor:
-    """Sum of the float32 partials, ``group_sizes`` consecutive partials
-    per group: each group's total in order, then the totals in order —
-    float32, or in int16 mode the int32 sum of ``trunc(min(total,
-    10000))``. A CPU tensor takes the plain version; a CUDA tensor
-    launches the ``sgm_volume_sum`` kernel (or raises)."""
-    if parts[0].device.type == "cpu":
-        return sgm_volume_sum_plain(parts, group_sizes, int16_mode)
-    if sum(group_sizes) != len(parts) or min(group_sizes) < 1 \
-            or len(parts) > len(DIRECTIONS_8):
-        raise ValueError(f"{len(parts)} partials do not split into groups "
-                         f"of {list(group_sizes)} (at most 8)")
-    for p in parts:
-        if p.shape != parts[0].shape or p.dtype != torch.float32 \
-                or p.numel() % 4:
-            raise ValueError("partials must be float32, of one shape, with "
-                             "a multiple of 4 elements")
-    _build.require_cuda(*parts)
-    S = torch.empty(parts[0].shape, device=parts[0].device,
-                    dtype=torch.int32 if int16_mode else torch.float32)
-    ptrs = (ctypes.c_void_p * len(parts))(*(p.data_ptr() for p in parts))
-    ends = list(itertools.accumulate(group_sizes))
-    group_end = (ctypes.c_int * len(ends))(*ends)
-    _build.launch("i3dr_sgm_volume_sum", "sgm_volume_sum", S.device,
-                  ctypes.cast(ptrs, ctypes.c_void_p), len(parts),
-                  ctypes.cast(group_end, ctypes.c_void_p), len(ends),
-                  int(int16_mode), S.data_ptr(), S.numel(),
-                  _build.stream_of(S))
-    return S
-
-
 # ---------------------------------------------------------------------------
 # public entry
 # ---------------------------------------------------------------------------
 
+def fold_paths(C: torch.Tensor, groups, int16_mode: bool,
+               step=sgm_volume_step, S=None) -> torch.Tensor:
+    """Run the directions of ``groups`` ([((p1, p2), [directions])], the
+    TPU's launches in order) over the (B, H, W, D) volume ``C``, each
+    folded into the running sum in place: a group of one adds to S, a
+    larger group sums its directions in a float32 plane T first and adds
+    the total with its last direction. ``S`` is the sum so far (the lean
+    path's forward pass: float32, or int16 in int16 mode), or None.
+    Returns S: float32, or int32 in int16 mode. ``step`` is
+    :func:`sgm_volume_step` or its plain twin."""
+    out_dtype = torch.int32 if int16_mode else torch.float32
+    out = S if S is not None and S.dtype == out_dtype else torch.empty(
+        C.shape, dtype=out_dtype, device=C.device)
+    T = (torch.empty(C.shape, dtype=torch.float32, device=C.device)
+         if any(len(ds) > 1 for _, ds in groups) else None)
+    acc = S
+    for (p1, p2), ds in groups:
+        for i, (dy, dx) in enumerate(ds):
+            if i < len(ds) - 1:
+                step(C, dy, dx, p1, p2, T, x=T if i else None)
+            else:
+                step(C, dy, dx, p1, p2, out, x=T if len(ds) > 1 else None,
+                     acc=acc)
+                acc = out
+    return acc if acc is out else acc.to(out_dtype)
+
+
 def _aggregate(C, p1, p2, directions, per_direction_penalties, out_dtype,
-               path, total):
+               step):
     Cb, groups, int16_mode, (H, W, D) = plan(
         C, p1, p2, directions, per_direction_penalties, out_dtype)
-    parts = [path(Cb, dy, dx, *pp) for pp, ds in groups for dy, dx in ds]
-    S = total(parts, [len(ds) for _, ds in groups], int16_mode)
-    S = S[:, :H, :W, :D]
+    S = fold_paths(Cb, groups, int16_mode, step)[:, :H, :W, :D]
     return S if C.ndim == 4 else S[0]
 
 
@@ -268,7 +306,7 @@ def sgm_aggregate(C: torch.Tensor, p1=10.0, p2=120.0,
     the int16-stored group totals. A CPU tensor runs the plain twins; a
     CUDA tensor launches the ``sgm_volume`` kernels (or raises)."""
     return _aggregate(C, p1, p2, directions, per_direction_penalties,
-                      out_dtype, sgm_volume_path, sgm_volume_sum)
+                      out_dtype, sgm_volume_step)
 
 
 def sgm_aggregate_plain(C: torch.Tensor, p1=10.0, p2=120.0,
@@ -277,4 +315,4 @@ def sgm_aggregate_plain(C: torch.Tensor, p1=10.0, p2=120.0,
                         out_dtype=None) -> torch.Tensor:
     """:func:`sgm_aggregate` through the plain twins, on any device."""
     return _aggregate(C, p1, p2, directions, per_direction_penalties,
-                      out_dtype, sgm_volume_path_plain, sgm_volume_sum_plain)
+                      out_dtype, sgm_volume_step_plain)

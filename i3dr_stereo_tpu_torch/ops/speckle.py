@@ -8,8 +8,9 @@ Filter Max Difference = 0.5 / Max Region Size = 100",
 ini/quick.param:94-95).
 
 - :func:`speckle_keep` launches the ``speckle_ccl`` kernel
-  (``csrc/speckle_ccl.cu``: union-find labelling and a size histogram,
-  the port of the TPU's ``speckle_filter_pallas``) for a CUDA tensor and
+  (``csrc/speckle_ccl.cu``: union-find labelling, each tile root's count
+  added at its component's root, the port of the TPU's
+  ``speckle_filter_pallas``) for a CUDA tensor and
   runs :func:`speckle_keep_plain` for a CPU tensor.
 - :func:`speckle_keep_plain` is the reference's XLA formulation: S+2
   min-label rounds, 3 change-detection rounds, 2L+4 dirty-spread rounds

@@ -9,9 +9,10 @@ scalars have no counterpart: every call runs the current config, and its
 numeric fields (P1/P2, uniqueness, backmatch distance, speckle range)
 plus the depth bounds reach the kernels as runtime scalars — changing
 them through :meth:`StereoPipeline.update_config` or ``update_cloud``
-rebuilds nothing. The device is explicit: a CPU pipeline runs the plain
-torch twins of the kernels, a CUDA pipeline runs the kernels and never
-falls back. ``lean=True`` passes the matchers' ``lean`` argument on (the
+rebuilds nothing. The pipeline runs on the card (``device="cuda"``, the
+default) and launches the kernels there, or raises where there is none:
+it never falls back. ``device="cpu"`` runs the plain torch twins of the
+kernels. ``lean=True`` passes the matchers' ``lean`` argument on (the
 reference's ``I3DR_SGM_BACKEND=pallas`` branch: the fused cost + SGM
 path).
 """
@@ -23,6 +24,7 @@ from typing import Optional
 
 import torch
 
+from i3dr_stereo_tpu_torch._build import resolve_device
 from i3dr_stereo_tpu_torch.config.params import MatcherConfig, PointCloudConfig
 from i3dr_stereo_tpu_torch.core.camera import StereoRig
 from i3dr_stereo_tpu_torch.core.frame import to_mono_f32
@@ -55,12 +57,8 @@ class PipelineResult:
 
 
 def _resolve_device(device) -> torch.device:
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(f"device {dev} requested but CUDA is not "
-                               "available")
-    elif dev.type != "cpu":
+    dev = resolve_device(device)
+    if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}: expected cpu or cuda")
     return dev
 
@@ -72,7 +70,7 @@ class StereoPipeline:
     rig: StereoRig
     config: MatcherConfig
     cloud: PointCloudConfig = dataclasses.field(default_factory=PointCloudConfig)
-    device: torch.device | str = "cpu"
+    device: torch.device | str = "cuda"
     interpolation: str = "cubic"
     compute_depth: bool = True
     compute_points: bool = True

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""The flagship SGM stage, the two census-cost kernels and both flagship
-frames of one or more checkouts of the PyTorch + CUDA port, measured in
-turns on one NVIDIA GPU.
+"""The flagship SGM stage, the census-cost kernels, the volume SGM
+aggregation, the speckle filter, both flagship frames and the SGBM frame
+of one or more checkouts of the PyTorch + CUDA port, measured in turns on
+one NVIDIA GPU.
 
-    python3 sgm_stage_bench.py [ROOT ...]
+    python3 sgm_stage_bench.py [--only SECTION,...] [ROOT ...]
 
 Each ROOT is a directory that holds an ``i3dr_stereo_tpu_torch`` package
 (this checkout when none is given). To compare a change with its parent,
@@ -13,23 +14,37 @@ process of its own, builds its own kernels and prints one JSON line; the
 scene, the level-0 inputs, the timing and the profile window are
 ``chip_smoke.py``'s of this checkout, so only the package differs.
 
-Per ROOT, with the card's name and power limit:
+Per ROOT, with the card's name and power limit, in five sections
+(``--only`` names those to run, comma-separated; all by default):
 
-- level 0 of the flagship pyramid (2448x2048 padded to 2560x2048, D = 32,
-  4 paths): ``census_cost`` alone and ``census_sgm_wta`` whole (CUDA
-  events, median of 10), their difference (the SGM stage, whatever
-  kernels the checkout runs it in), and the peak memory of one call above
-  what was allocated before it;
-- level 0 of the lean pyramid (2448x2048, D = 32, base -16):
-  ``fused_census_fwd`` with the float32 path costs the lean frame asks
-  for (median of 10), and a digest of its C and S;
-- the flagship frame and the lean flagship frame (raw uint8 -> rectify ->
-  pyramid with speckle -> depth, cloud, crop): ms/frame (median of 10),
-  peak memory, and ``chip_smoke.py``'s five-frame profile (device busy,
-  idle share, activities a frame, the largest kernels), from which the
-  summary takes device busy and the two census kernels' time a frame;
-- a digest of each frame's disparity and valid mask; the last line says
-  whether all roots gave the same digests.
+- ``level0``: level 0 of the flagship pyramid (2448x2048 padded to
+  2560x2048, D = 32, 4 paths): ``census_cost`` alone and
+  ``census_sgm_wta`` whole (CUDA events, median of 10), their difference
+  (the SGM stage, whatever kernels the checkout runs it in), and the
+  peak memory of one call above what was allocated before it;
+- ``lean_level0``: level 0 of the lean pyramid (2448x2048, D = 32, base
+  -16): ``fused_census_fwd`` with float32 path costs (median of 10) and
+  a digest of its C and S; ``fused_census_sgm`` whole there (4 paths,
+  the int16 mode the lean frame runs): ms (median of 10) and a digest of
+  its S and C;
+- ``sgbm_aggregate``: ``sgm_aggregate`` at the SGBM frame's shape
+  (1x1024x1280x128 float32 costs from a seed, 8 paths, P1/P2 200/400):
+  ms (median of 10), the peak memory of one call above what was
+  allocated before it, a digest of S;
+- ``speckle``: ``speckle_keep`` on the flagship frame's level-0
+  disparities after the downsample-2 front-end (1224x1024, S = 25): ms
+  (median of 10) and a digest of the keep-mask;
+- ``frames``: the flagship frame, the lean flagship frame (raw uint8 ->
+  rectify -> pyramid with speckle -> depth, cloud, crop) and the SGBM
+  frame (``accuracy_bench.py``'s 1280x1024 scene and config): ms/frame
+  (median of 10), peak memory, ``chip_smoke.py``'s five-frame profile
+  (device busy, idle share, the census kernels' and the volume SGM
+  kernels' time a frame) and a digest of the disparity and valid mask.
+
+The last line says whether all roots gave the same digests.
+
+Every entry point is called with its device (``device="cuda"``), so a
+checkout whose defaults differ is measured on the card all the same.
 """
 
 from __future__ import annotations
@@ -45,6 +60,20 @@ HERE = Path(__file__).resolve().parent
 # the census-cost kernels' names in a profile: census_cost, and the fused
 # census forward pass in either of its kernels
 CENSUS_SYMBOLS = ("census_cost_kernel", "census32_kernel", "CensusCost")
+# the volume SGM kernels' names: the per-direction kernel and the sum pass
+# a parent may have
+VOLUME_SYMBOLS = ("sgm_volume_kernel", "sgm_volume_sum_kernel")
+SECTIONS = ("level0", "lean_level0", "sgbm_aggregate", "speckle", "frames")
+DIGESTS = ("frame_digest", "lean_frame_digest", "sgbm_frame_digest",
+           "level0_digest", "lean_level0_digest", "lean_level0_sgm_digest",
+           "sgbm_aggregate_digest", "speckle_digest")
+
+
+def digest(*tensors) -> str:
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
 
 
 def load_chip_smoke():
@@ -55,7 +84,7 @@ def load_chip_smoke():
     return cs
 
 
-def measure(root: Path) -> dict:
+def measure(root: Path, sections) -> dict:
     sys.path.insert(0, str(root))
     import torch
 
@@ -65,10 +94,7 @@ def measure(root: Path) -> dict:
     from i3dr_stereo_tpu_torch import _build
     from i3dr_stereo_tpu_torch.config import params
     from i3dr_stereo_tpu_torch.io.synthetic import layered_scene
-    from i3dr_stereo_tpu_torch.ops import block_gather as bg
-    from i3dr_stereo_tpu_torch.ops import fused_cost_sgm as fcs
-    from i3dr_stereo_tpu_torch.ops import sgm_fused_t as sf
-    from i3dr_stereo_tpu_torch.ops.census import census_transform
+    from i3dr_stereo_tpu_torch.ops import speckle as sp
 
     card = cs.card_line()
     _build.library()
@@ -76,7 +102,32 @@ def measure(root: Path) -> dict:
     sc = layered_scene(cs.H_FULL, cs.W_FULL, **cs.SCENE)
     out = {"root": str(root), "card": card}
 
-    # level 0 as the pyramid builds it
+    if "level0" in sections:
+        level0(out, cs, cfg, sc)
+    if "lean_level0" in sections:
+        lean_level0(out, cs, cfg, sc)
+    if "sgbm_aggregate" in sections:
+        sgbm_aggregate(out, cs)
+    if "speckle" in sections:
+        # the speckle filter at the flagship frame's ds2 shape
+        _, _, _, (dd, vv, S2, md2) = cs.speckle_inputs(sc, cfg)
+        keep = lambda: sp.speckle_keep(dd, vv, S2, md2)
+        out["speckle_ms"] = cs.gpu_ms(keep)
+        out["speckle_digest"] = digest(keep())
+        del dd, vv
+        torch.cuda.empty_cache()
+    if "frames" in sections:
+        frames(out, cs, card, root.name)
+    return out
+
+
+def level0(out, cs, cfg, sc):
+    """Level 0 as the pyramid builds it: census_cost and the SGM stage."""
+    import torch
+    from i3dr_stereo_tpu_torch.ops import block_gather as bg
+    from i3dr_stereo_tpu_torch.ops import sgm_fused_t as sf
+    from i3dr_stereo_tpu_torch.ops.census import census_transform
+
     _, lp, rp, pred, q, bpm, Hh, Wh = next(cs.flagship_levels(cfg, sc))
     rw = bg.block_shift_gather(rp, pred, q, 16)
     cl = census_transform(lp, cfg.census_height, cfg.census_width)
@@ -97,64 +148,106 @@ def measure(root: Path) -> dict:
     torch.cuda.synchronize()
     out["level0_peak_gib"] = (torch.cuda.max_memory_allocated()
                               - before) / 2**30
-    out["level0_digest"] = hashlib.sha256(
-        d.cpu().numpy().tobytes()).hexdigest()[:16]
+    out["level0_digest"] = digest(d)
     del d
     del cl, cr
     torch.cuda.empty_cache()
 
-    # level 0 of the lean pyramid
+
+def lean_level0(out, cs, cfg, sc):
+    """Level 0 of the lean pyramid: J alone and fused_census_sgm whole."""
+    import torch
+    from i3dr_stereo_tpu_torch.ops import fused_cost_sgm as fcs
+
     _, cl, cr, base, _, _ = next(cs.lean_levels(cfg, sc))
     clw, crw = fcs.census_word_planes(cl), fcs.census_word_planes(cr)
     H8 = cl.shape[1]
-    del cl, cr
     bases = torch.full((H8 // fcs.row_tile(H8),), base, dtype=torch.int32,
                        device=cs.DEVICE)
     fused = lambda: fcs.fused_census_horizontal(
         clw, crw, bases, 32, cfg.p1, cfg.p2, out_dtype=torch.float32)
     out["fused_census_fwd_ms"] = cs.gpu_ms(fused)
-    digest = hashlib.sha256()
-    for t in fused():
-        digest.update(t.cpu().numpy().tobytes())
-    out["lean_level0_digest"] = digest.hexdigest()[:16]
-    del clw, crw, t
+    out["lean_level0_digest"] = digest(*fused())
+    del clw, crw
+    sgm_call = lambda: fcs.fused_census_sgm(
+        cl, cr, 32, base=base, per_direction_penalties=[(cfg.p1, cfg.p2)] * 4,
+        directions=((0, 1), (0, -1), (1, 0), (-1, 0)))
+    out["lean_level0_sgm_ms"] = cs.gpu_ms(sgm_call)
+    out["lean_level0_sgm_digest"] = digest(*sgm_call())
+    del cl, cr
     torch.cuda.empty_cache()
 
-    # the two flagship frames
-    for name, lean in (("frame", False), ("lean_frame", True)):
-        pipe, left, right, sc, cfg, _ = cs.flagship_pipe(lean=lean)
+
+def sgbm_aggregate(out, cs):
+    """The SGBM aggregation: float32 costs from a seed, 8 paths."""
+    import torch
+    from i3dr_stereo_tpu_torch.ops import sgm
+
+    rng = torch.Generator(device=cs.DEVICE).manual_seed(7)
+    C = torch.rand((1, cs.H_SGBM, cs.W_SGBM, 128), generator=rng,
+                   device=cs.DEVICE) * 60
+    C[torch.rand(C.shape, generator=rng, device=cs.DEVICE) < 0.03] = 1e9
+    agg = lambda: sgm.sgm_aggregate(C, 200.0, 400.0, sgm.DIRECTIONS_8)
+    out["sgbm_aggregate_ms"] = cs.gpu_ms(agg)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out["sgbm_aggregate_digest"] = digest(agg())
+    out["sgbm_aggregate_peak_gib"] = (torch.cuda.max_memory_allocated()
+                                      - before) / 2**30
+    del C
+    torch.cuda.empty_cache()
+
+
+def frames(out, cs, card, label):
+    """The flagship frame, the lean flagship frame and the SGBM frame."""
+    import torch
+    from i3dr_stereo_tpu_torch import _build
+
+    for name, make in (("frame", cs.flagship_pipe),
+                       ("lean_frame", lambda: cs.flagship_pipe(lean=True)),
+                       ("sgbm_frame", cs.sgbm_pipe)):
+        pipe, left, right, sc, cfg, _ = make()
         torch.cuda.reset_peak_memory_stats()
-        res = cs.drive_frame(pipe, left, right, sc, (),
-                             f"{root.name} {name}", {})
+        res = cs.drive_frame(pipe, left, right, sc, (), f"{label} {name}",
+                             {})
         out[f"{name}_launches"] = dict(_build.LAUNCHES)
-        out[f"{name}_digest"] = hashlib.sha256(
-            res.disparity.cpu().numpy().tobytes()
-            + res.valid.cpu().numpy().tobytes()).hexdigest()[:16]
+        out[f"{name}_digest"] = digest(res.disparity, res.valid)
         out[f"{name}_ms"] = cs.gpu_ms(lambda: pipe.process(left, right),
                                       iters=10, warmup=1)
         out[f"{name}_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
         prof = cs.phase_profile(pipe, left, right, card,
-                                label=f"{root.name} {name}")
+                                label=f"{label} {name}")
         out[f"{name}_busy_ms"] = prof["busy_ms"]
         out[f"{name}_idle_share"] = prof["idle_share"]
-        out[f"{name}_census_kernels_ms"] = sum(
-            ms for k, ms in prof["kernels_ms"].items()
-            if any(sym in k for sym in CENSUS_SYMBOLS))
+        for key, symbols in (("census", CENSUS_SYMBOLS),
+                             ("volume", VOLUME_SYMBOLS)):
+            out[f"{name}_{key}_kernels_ms"] = sum(
+                ms for k, ms in prof["names_ms"].items()
+                if any(sym in k for sym in symbols))
         del pipe, res
         torch.cuda.empty_cache()
-    return out
 
 
 def main() -> int:
-    if len(sys.argv) == 3 and sys.argv[1] == "--one":
-        print("RESULT " + json.dumps(measure(Path(sys.argv[2]).resolve())),
-              flush=True)
+    args = sys.argv[1:]
+    sections = SECTIONS
+    if args[:1] == ["--only"]:
+        sections, args = tuple(args[1].split(",")), args[2:]
+        unknown = set(sections) - set(SECTIONS)
+        if unknown:
+            print(f"unknown sections {sorted(unknown)}; known: {SECTIONS}")
+            return 2
+    if args[:1] == ["--one"]:
+        print("RESULT " + json.dumps(measure(Path(args[1]).resolve(),
+                                             sections)), flush=True)
         return 0
-    roots = [Path(a).resolve() for a in sys.argv[1:]] or [HERE]
+    roots = [Path(a).resolve() for a in args] or [HERE]
     results = []
     for root in roots:
         print(f"=== {root}", flush=True)
-        run = subprocess.run([sys.executable, __file__, "--one", str(root)],
+        run = subprocess.run([sys.executable, __file__, "--only",
+                              ",".join(sections), "--one", str(root)],
                              capture_output=True, text=True, timeout=900)
         print(run.stdout, end="", flush=True)
         if run.returncode != 0:
@@ -164,26 +257,16 @@ def main() -> int:
             [l for l in run.stdout.splitlines()
              if l.startswith("RESULT ")][-1][7:]))
     for r in results:
-        print(f"{r['root']} [{r['card']}]: census_cost at level 0 "
-              f"{r['census_cost_ms']:.4f} ms, SGM stage "
-              f"{r['stage_ms']:.4f} ms by events ({r['census_sgm_wta_ms']:.4f}"
-              f" - census_cost), level-0 peak {r['level0_peak_gib']:.3f} GiB;"
-              f" fused_census_fwd at lean level 0 "
-              f"{r['fused_census_fwd_ms']:.4f} ms", flush=True)
-        for name, kernel in (("frame", "census_cost"),
-                             ("lean_frame", "fused_census_fwd")):
-            print(f"  {name}: {r[name + '_ms']:.3f} ms/frame, device busy "
-                  f"{r[name + '_busy_ms']:.3f} ms/frame (idle share "
-                  f"{r[name + '_idle_share']:.4f}), {kernel} "
-                  f"{r[name + '_census_kernels_ms']:.3f} ms/frame of it, "
-                  f"peak {r[name + '_peak_gib']:.2f} GiB", flush=True)
-    same = all(len({r[k] for r in results}) == 1
-               for k in ("frame_digest", "lean_frame_digest",
-                         "level0_digest", "lean_level0_digest"))
-    print(f"disparities of both frames and both level-0 outputs of all "
-          f"roots bit-equal: {same}", flush=True)
-    return 0 if same else 1
-
+        print(f"{r['root']} [{r['card']}]:", flush=True)
+        for k, v in r.items():
+            if isinstance(v, float):
+                print(f"  {k} {v:.4f}", flush=True)
+    digests = [k for k in DIGESTS if k in results[0]]
+    unequal = [k for k in digests if len({r[k] for r in results}) != 1]
+    print(f"digests of all roots bit-equal ({', '.join(digests)}): "
+          f"{not unequal}" + (f"; differ: {unequal}" if unequal else ""),
+          flush=True)
+    return 0 if not unequal else 1
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -184,6 +184,51 @@ def test_cuda_device_raises_without_cuda():
         StereoPipeline(camera.StereoRig.synthetic(64, 48), cfg, device="meta")
 
 
+@pytest.mark.parametrize("entry", ["StereoPipeline", "make_rectify_map",
+                                   "StereoMatcher", "create_matcher"])
+def test_entry_points_default_to_the_card(entry):
+    """Without ``device`` the entry points run on the card; with no card
+    they raise, never falling back to the CPU."""
+    from i3dr_stereo_tpu_torch.matchers import base
+    from i3dr_stereo_tpu_torch.ops import rectify
+    from i3dr_stereo_tpu_torch.pipeline.stereo_pipeline import StereoPipeline
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    cfg = params.ALGORITHM_DEFAULTS[params.Algorithm.SGBM]
+    make = {
+        "StereoPipeline": lambda: StereoPipeline(
+            camera.StereoRig.synthetic(64, 48), cfg),
+        "make_rectify_map": lambda: rectify.make_rectify_map(
+            camera.CameraModel.ideal(16, 8, 10.0)),
+        "StereoMatcher": lambda: base.StereoMatcher(cfg),
+        "create_matcher": lambda: base.create_matcher(params.Algorithm.SGBM),
+    }[entry]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make()
+
+
+def test_cpu_matcher_moves_its_inputs_to_the_cpu():
+    """``device="cpu"``: numpy frames and tensors alike are matched by the
+    plain twins on the CPU, forward and backward."""
+    from i3dr_stereo_tpu_torch.matchers import base
+
+    sc = layered_scene(40, 64, max_disp=12, seed=3)
+    cfg = params.ALGORITHM_DEFAULTS[params.Algorithm.BM].replace(
+        disparity_range=16)
+    m = base.create_matcher(cfg, device="cpu")
+    assert m.device == torch.device("cpu")
+    fwd = m.match(sc.left, sc.right)
+    bwd = m.backward_match(sc.left, sc.right)
+    for res in (fwd, bwd):
+        assert res.disparity.device.type == "cpu"
+        assert res.valid.device.type == "cpu"
+        assert tuple(res.disparity.shape) == (40, 64)
+    again = m.match(torch.from_numpy(sc.left), torch.from_numpy(sc.right))
+    assert torch.equal(again.disparity, fwd.disparity)
+    assert torch.equal(again.valid, fwd.valid) and bool(fwd.valid.any())
+
+
 def test_kernel_wrappers_reject_non_cuda_accelerator_tensors():
     from i3dr_stereo_tpu_torch.ops.block_gather import block_shift_gather
 
@@ -218,7 +263,7 @@ def test_unported_features_raise():
     base = params.ALGORITHM_DEFAULTS[params.Algorithm.I3DRSGM]
     img = np.zeros((48, 64), np.float32)
     # rectification and speckle (size 100 by default) are ported
-    pipe = StereoPipeline(rig, base)
+    pipe = StereoPipeline(rig, base, device="cpu")
     assert pipe.rectify_inputs and pipe.config.speckle_size == 100
     pipe.update_config(occlusion_detection=True)
     with pytest.raises(NotImplementedError, match="occlusion"):

@@ -284,12 +284,17 @@ PENS8 = [(1.5, 9.0), (2.0, 11.0), (1.5, 9.0), (2.0, 11.0), (0.75, 30.0),
          (2.0, 11.0), (1.5, 9.0), (0.5, 4.0)]
 
 
+NO_REVERSE = ((0, 1), (1, 0), (1, 1), (1, -1), (-1, 0))
+
+
 @pytest.mark.parametrize("dirs,pens,base,D,dtype", [
     (sgm.DIRECTIONS_4, PENS8[:4], -16, 32, "int16"),
     (sgm.DIRECTIONS_8, PENS8, 2, 24, "int16"),
     (sgm.DIRECTIONS_8, PENS8, 0, 16, "float32"),
     (sgm.DIRECTIONS_4, None, 0, 40, "float32"),
-], ids=["4path_pens", "8path_pens", "8path_pens_f32", "4path_uniform_f32"])
+    (NO_REVERSE, None, -4, 32, "int16"),
+], ids=["4path_pens", "8path_pens", "8path_pens_f32", "4path_uniform_f32",
+        "no_reverse_int16"])
 def test_fused_census_sgm_matches_interpret(dirs, pens, base, D, dtype):
     L, R = _images(2, 16, 40, seed=D)
     cl, cr = ref_census(jnp.asarray(L), 9, 9), ref_census(jnp.asarray(R), 9, 9)
@@ -312,7 +317,8 @@ def test_fused_census_sgm_matches_interpret(dirs, pens, base, D, dtype):
     (sgm.DIRECTIONS_8, 32, 0, "int16"),
     (sgm.DIRECTIONS_5, 24, 3, "int16"),
     (sgm.DIRECTIONS_8, 16, 0, "float32"),
-], ids=["8path", "5path_min_disp", "8path_f32"])
+    (NO_REVERSE, 16, 0, "float32"),
+], ids=["8path", "5path_min_disp", "8path_f32", "no_reverse_f32"])
 def test_fused_bt_sgm_matches_interpret(dirs, D, md, dtype):
     lp, rp = _prefiltered(2, 16, 40, seed=D + 1)
     Sr, Cr = ref.fused_bt_sgm(jnp.asarray(lp), jnp.asarray(rp), D,
@@ -323,6 +329,76 @@ def test_fused_bt_sgm_matches_interpret(dirs, D, md, dtype):
                               out_dtype=getattr(torch, dtype))
     _assert_same(Cp, Cr, "C")
     _assert_same(Sp, Sr, "S")
+
+
+def _lean_inputs(kind, seed):
+    """(fused aggregation, its forward kernel's name in fcs, its inputs,
+    keyword arguments, the forward's (left, right, base, p1, p2))."""
+    if kind == "census":
+        L, R = _images(2, 16, 40, seed=seed)
+        tcl = census_transform(torch.from_numpy(L), 9, 9)
+        tcr = census_transform(torch.from_numpy(R), 9, 9)
+        fwd_in = (fcs.census_word_planes(tcl), fcs.census_word_planes(tcr),
+                  torch.full((2,), -4, dtype=torch.int32), P1, P2)
+        return (fcs.fused_census_sgm, "fused_census_horizontal", (tcl, tcr),
+                dict(base=-4, p1=P1, p2=P2), fwd_in)
+    lp, rp = (torch.from_numpy(x) for x in _prefiltered(2, 16, 40, seed))
+    return (fcs.fused_bt_sgm, "fused_bt_horizontal", (lp, rp),
+            dict(p1=8.0, p2=32.0), (lp, rp, torch.zeros((2,), dtype=torch.int32),
+                                    16.0, 64.0))
+
+
+@pytest.mark.parametrize("kind", ["census", "bt"])
+@pytest.mark.parametrize("dtype", [torch.int16, torch.float32],
+                         ids=["int16", "float32"])
+def test_lean_aggregate_asks_the_forward_pass_for_its_mode(kind, dtype,
+                                                           monkeypatch):
+    """int16 mode asks J / K for int16 path costs, as the reference does
+    (its S_fwd.astype(int32)); float32 mode for float32."""
+    fn, fwd_name, args, kw, _ = _lean_inputs(kind, seed=5)
+    asked = []
+    real = getattr(fcs, fwd_name)
+
+    def spy(*a, **k):
+        asked.append(k["out_dtype"])
+        return real(*a, **k)
+
+    monkeypatch.setattr(fcs, fwd_name, spy)
+    S, _ = fn(*args, 24, directions=sgm.DIRECTIONS_8, out_dtype=dtype, **kw)
+    assert asked == [dtype]
+    assert S.dtype == (torch.int32 if dtype == torch.int16 else torch.float32)
+
+
+@pytest.mark.parametrize("kind,dirs,pens,dtype", [
+    ("census", sgm.DIRECTIONS_8, PENS8, torch.int16),
+    ("census", sgm.DIRECTIONS_4, None, torch.float32),
+    ("census", NO_REVERSE, None, torch.int16),
+    ("bt", sgm.DIRECTIONS_8, None, torch.int16),
+    ("bt", NO_REVERSE, None, torch.float32),
+], ids=["census_8path_pens_int16", "census_4path_f32",
+        "census_no_reverse_int16", "bt_8path_int16", "bt_no_reverse_f32"])
+def test_lean_chain_equals_the_sum_of_partials(kind, dirs, pens, dtype):
+    """The lean chain (J / K's plane, the other directions folded into
+    it) equals the forward pass's float32 L and the per-direction
+    partials summed in the TPU's order, bit for bit."""
+    fn, fwd_name, args, kw, (fl, fr, base, q1, q2) = _lean_inputs(kind, 9)
+    D = 24
+    if pens is not None:
+        kw = dict(kw, per_direction_penalties=pens)
+    S, C = fn(*args, D, directions=dirs, out_dtype=dtype, plain=True, **kw)
+    pen = ({d: (P1, P2) for d in dirs} if pens is None
+           else {d: tuple(pens[i]) for i, d in enumerate(dirs)})
+    if kind == "bt":
+        pen = {d: (16.0, 64.0) for d in dirs}
+    Cf, Lf = getattr(fcs, fwd_name + "_plain")(fl, fr, base, D, *pen[(0, 1)],
+                                               out_dtype=torch.float32)
+    assert torch.equal(C, Cf)
+    groups = sgm._groups(dirs, pen, 40, D, 1)[1:]
+    parts = [Lf] + [sgm.sgm_volume_path_plain(C, dy, dx, *pp)
+                    for pp, ds in groups for dy, dx in ds]
+    ref_S = sgm.sgm_volume_sum_plain(parts, [1] + [len(ds) for _, ds in groups],
+                                     dtype == torch.int16)
+    assert torch.equal(S, ref_S)
 
 
 def test_lean_grouping_splits_at_the_exact_D():

@@ -174,8 +174,10 @@ def test_create_matcher_lean(reference, lean_backend):
 
     cfg, shape, seed = MATCH_CASES["sgbm_window1"]
     l, r = _scene(shape, seed)
-    m = base.create_matcher(config_from_reference(cfg), lean=True)
-    assert m.lean and not base.create_matcher(params.Algorithm.SGBM).lean
+    m = base.create_matcher(config_from_reference(cfg), lean=True,
+                            device="cpu")
+    assert m.lean and not base.create_matcher(params.Algorithm.SGBM,
+                                              device="cpu").lean
     fwd = m.match(l, r)
     np.testing.assert_array_equal(fwd.disparity.numpy(),
                                   reference["sgbm_window1"][0])

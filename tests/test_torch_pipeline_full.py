@@ -130,7 +130,7 @@ def test_set_rig_rebuilds_the_maps(raw):
     pipe = _port_pipeline()
     rig2 = rig_from_reference(_rig(scale=1.05))
     pipe.set_rig(rig2)
-    want = make_rectify_map(rig2.left)
+    want = make_rectify_map(rig2.left, device="cpu")
     assert torch.equal(pipe._lmap.flat_idx, want.flat_idx)
     assert torch.equal(pipe._lmap.wx, want.wx)
     assert pipe.rig is rig2

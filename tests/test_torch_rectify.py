@@ -39,7 +39,8 @@ def _image(shape, seed, dtype):
 def test_map_bit_identical_to_reference(make, interp):
     ref = ref_rectify.make_rectify_map(make(RefCamera), interpolation=interp,
                                        banded=False)
-    port = rectify.make_rectify_map(make(CameraModel), interpolation=interp)
+    port = rectify.make_rectify_map(make(CameraModel), interpolation=interp,
+                                    device="cpu")
     assert (port.src_h, port.src_w, port.pad, port.taps) == (
         ref.src_h, ref.src_w, ref.pad, ref.taps)
     assert port.flat_idx.dtype == torch.int32
@@ -92,7 +93,7 @@ def test_remap_equals_reference_gather(interp, dtype, batch):
     ref_map = ref_rectify.make_rectify_map(_distorted(RefCamera),
                                            interpolation=interp, banded=False)
     port_map = rectify.make_rectify_map(_distorted(CameraModel),
-                                        interpolation=interp)
+                                        interpolation=interp, device="cpu")
     want = np.asarray(ref_rectify._remap_gather_impl(jnp.asarray(img),
                                                      ref_map))
     got = rectify.remap(torch.from_numpy(img), port_map)
@@ -109,7 +110,8 @@ def test_remap_u8_equals_f32_and_custom_map():
     img = _image((72, 96), seed=5, dtype="uint8")
     mx, my = np.meshgrid(np.arange(96, dtype=np.float64),
                          np.arange(72, dtype=np.float64))
-    m = rectify.make_rectify_map(cam, map_xy=(mx - 7.25, my + 0.5))
+    m = rectify.make_rectify_map(cam, map_xy=(mx - 7.25, my + 0.5),
+                                 device="cpu")
     a = rectify.remap(torch.from_numpy(img), m)
     b = rectify.remap(torch.from_numpy(img.astype(np.float32)), m)
     np.testing.assert_array_equal(a.numpy(), b.numpy())
@@ -127,8 +129,8 @@ def test_remap_u8_equals_f32_and_custom_map():
 
 def test_rectify_pair_and_shape_check():
     cam = _distorted(CameraModel)
-    lm = rectify.make_rectify_map(cam)
-    rm = rectify.make_rectify_map(cam, interpolation="linear")
+    lm = rectify.make_rectify_map(cam, device="cpu")
+    rm = rectify.make_rectify_map(cam, interpolation="linear", device="cpu")
     img = torch.from_numpy(_image((240, 320), seed=7, dtype="float32"))
     l, r = rectify.rectify_pair(img, img, lm, rm)
     np.testing.assert_array_equal(l.numpy(), rectify.remap(img, lm).numpy())

@@ -140,7 +140,8 @@ def facade_reference(tpu_branch):
 
 
 def test_create_matcher_forward_backward_and_encodings(facade_reference):
-    m = base.create_matcher(config_from_reference(CASES["sgbm_accuracy"][0]))
+    m = base.create_matcher(config_from_reference(CASES["sgbm_accuracy"][0]),
+                            device="cpu")
     l, r = _scene((H, W), seed=9)
     ref = facade_reference
     fwd = m.match(l, r)
@@ -158,7 +159,7 @@ def test_create_matcher_forward_backward_and_encodings(facade_reference):
 
 
 def test_matcher_update_and_unported_options():
-    m = base.create_matcher(params.Algorithm.SGBM)
+    m = base.create_matcher(params.Algorithm.SGBM, device="cpu")
     assert m.config == params.ALGORITHM_DEFAULTS[params.Algorithm.SGBM]
     m.update(p1=10.0, disparity_range=40)
     assert m.config.p1 == 10.0 and m.config.disparity_range == 48

@@ -1,4 +1,4 @@
-"""Torch port: volume SGM (the plain twin of the ``sgm_volume`` kernels,
+"""Torch port: volume SGM (the plain twin of the ``sgm_volume`` kernel,
 TPU kernels H and I) against ``sgm_aggregate_pallas`` run in Pallas
 interpret mode, the JAX package's aggregation as the TPU runs it, on the
 same numpy volumes.
@@ -6,7 +6,9 @@ same numpy volumes.
 The twin pads the volume as the TPU does and keeps its summation order,
 so it equals the reference bit for bit: below 1e9/2 and at the 1e9-level
 entries alike (a parabolic subpixel next to an invalid disparity reads
-those)."""
+those). The accumulating chain (each direction folded into the running
+sum in place, group totals in a float32 plane) also equals the sum of
+per-direction partials in the TPU's order, bit for bit."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -132,3 +134,143 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         sgm.sgm_aggregate(torch.zeros((1, 8, 8, 520), device="meta"))
     with pytest.raises(ValueError, match="float32 or uint8"):
         sgm.sgm_aggregate(torch.zeros((1, 8, 8, 32), dtype=torch.int16))
+    # the planes one launch folds into: float32 out takes a float32 acc,
+    # int32 out an int32 or (uint8 costs only) int16 acc, all one shape
+    C8 = torch.zeros((1, 8, 8, 32), dtype=torch.uint8, device="meta")
+    Cf = torch.zeros((1, 8, 8, 32), device="meta")
+    f32, i32, i16 = (torch.zeros((1, 8, 8, 32), dtype=t, device="meta")
+                     for t in (torch.float32, torch.int32, torch.int16))
+    for C, out, x, acc in ((C8, f32, None, i32), (C8, i32, None, f32),
+                           (Cf, i32, None, i16), (C8, i16, None, None),
+                           (C8, f32, i32, None), (C8, f32[..., :8], None, None)):
+        with pytest.raises(ValueError, match="int32 plane"):
+            sgm.sgm_volume_step(C, 0, 1, 1.0, 2.0, out, x, acc)
+    with pytest.raises(ValueError, match="CUDA"):
+        sgm.sgm_volume_step(C8, 0, 1, 1.0, 2.0, i32, f32, i16)
+
+
+PENS8 = [(1.5, 9.0), (2.0, 11.0), (1.5, 9.0), (2.0, 11.0), (0.75, 30.0),
+         (2.0, 11.0), (1.5, 9.0), (0.5, 4.0)]
+
+
+def _chain_and_partials(C, dirs, pens, p1, p2, int16):
+    """(the accumulating chain's S, the sum of per-direction partials,
+    the group sizes) over the padded volume, both through plain torch."""
+    Cb, groups, i16, _ = sgm.plan(torch.from_numpy(C), p1, p2, dirs, pens,
+                                  torch.int16 if int16 else None)
+    chain = sgm.fold_paths(Cb, groups, i16, sgm.sgm_volume_step_plain)
+    parts = [sgm.sgm_volume_path_plain(Cb, dy, dx, *pp)
+             for pp, ds in groups for dy, dx in ds]
+    sizes = [len(ds) for _, ds in groups]
+    return chain, sgm.sgm_volume_sum_plain(parts, sizes, i16), sizes
+
+
+# shape, directions, per-direction penalties, cost kind, int16 mode, the
+# group sizes in summation order
+CHAIN_CASES = {
+    "f32_8paths": ((1, 12, 18, 24), sgm.DIRECTIONS_8, None, "float", False,
+                   [1, 1, 3, 3]),
+    "int16_8paths": ((1, 12, 18, 40), sgm.DIRECTIONS_8, None, "u8", True,
+                     [1, 1, 3, 3]),
+    "f32_pens_two_groups": ((1, 10, 15, 20), sgm.DIRECTIONS_8, PENS8,
+                            "float", False, [1, 1, 2, 1, 2, 1]),
+    "int16_pens_two_groups": ((2, 9, 13, 30), sgm.DIRECTIONS_8, PENS8, "u8",
+                              True, [1, 1, 2, 1, 2, 1]),
+    "f32_no_reverse_horizontal": ((1, 11, 16, 24),
+                                  ((0, 1), (1, 0), (1, 1), (1, -1), (-1, 0),
+                                   (-1, 1)), None, "int", False, [1, 3, 2]),
+    "int16_vertical_group_first": ((1, 11, 16, 24),
+                                   ((1, 0), (1, 1), (1, -1), (-1, 0)), None,
+                                   "u8", True, [3, 1]),
+    "f32_vertical_group_first": ((2, 9, 14, 12),
+                                 ((1, 1), (1, -1), (1, 0), (-1, -1)), None,
+                                 "float", False, [3, 1]),
+}
+
+
+@pytest.mark.parametrize("name", list(CHAIN_CASES))
+def test_accumulating_chain_equals_partials_and_interpret(name):
+    """The chain's twin equals the sum of per-direction partials and the
+    JAX kernels in interpret mode, bit for bit: groups of one, of two and
+    of three, a group first, per-direction penalties, no (0, -1)."""
+    shape, dirs, pens, kind, int16, sizes = CHAIN_CASES[name]
+    C = _volume(shape, seed=len(name), kind=kind, invalid_cols=3)
+    p1, p2 = (7.0, 86.0) if int16 else (3.25, 21.5)
+    chain, summed, got_sizes = _chain_and_partials(C, dirs, pens, p1, p2,
+                                                   int16)
+    assert got_sizes == sizes
+    assert chain.dtype == (torch.int32 if int16 else torch.float32)
+    assert torch.equal(chain, summed)
+    port, ref = _both(C, dirs, pens, p1=p1, p2=p2, int16=int16)
+    _assert_exact(port, ref, 9999 if int16 else BIG / 2)
+    H, W, D = shape[-3:]
+    np.testing.assert_array_equal(chain[:, :H, :W, :D].numpy().reshape(
+        port.shape), port)
+
+
+def test_split_family_chain_equals_partials():
+    """Where the TPU runs each vertical direction alone, the chain folds
+    each into S with its own int16 clamp, as the partials' sum does."""
+    C = _volume((1, 8, 1160, 400), seed=8, kind="u8")
+    chain, summed, sizes = _chain_and_partials(
+        C, ((0, 1), (1, 0), (1, 1), (1, -1)), None, 7.0, 86.0, True)
+    assert sizes == [1, 1, 1, 1]
+    assert torch.equal(chain, summed)
+
+
+def _recorded_ops(groups, int16, S=None, shape=(1, 8, 8, 32)):
+    """The launches fold_paths makes: [(direction, out, x, acc)] with the
+    planes named S (the returned sum), T (the group total), F (the given
+    forward plane)."""
+    seen = []
+
+    def step(C, dy, dx, p1, p2, out, x=None, acc=None):
+        seen.append(((dy, dx), out, x, acc))
+
+    out = sgm.fold_paths(torch.zeros(shape, dtype=torch.uint8), groups,
+                         int16, step, S)
+    names = {out.data_ptr(): "S"}
+    if S is not None and S.data_ptr() not in names:
+        names[S.data_ptr()] = "F"
+
+    def name(t):
+        return None if t is None else names.setdefault(t.data_ptr(), "T")
+
+    return [(d, name(o), name(x), name(a)) for d, o, x, a in seen]
+
+
+def test_chain_folds_each_direction_into_s_and_t():
+    """Eight paths: one launch a direction, S and one group-total plane T
+    updated in place, no per-direction volume and no sum pass."""
+    pen = {d: (1.0, 2.0) for d in sgm.DIRECTIONS_8}
+    groups = sgm._groups(sgm.DIRECTIONS_8, pen, 8, 32, 1)
+    assert _recorded_ops(groups, False) == [
+        ((0, 1), "S", None, None), ((0, -1), "S", None, "S"),
+        ((1, 0), "T", None, None), ((1, 1), "T", "T", None),
+        ((1, -1), "S", "T", "S"),
+        ((-1, 0), "T", None, None), ((-1, -1), "T", "T", None),
+        ((-1, 1), "S", "T", "S")]
+    # a group first: its last direction writes S = f(T + L)
+    first = sgm._groups(((1, 0), (1, 1), (-1, 0)), pen, 8, 32, 1)
+    assert _recorded_ops(first, True) == [
+        ((1, 0), "T", None, None), ((1, 1), "S", "T", None),
+        ((-1, 0), "S", None, "S")]
+
+
+def test_lean_chain_starts_from_the_forward_plane():
+    """float32 mode folds into the forward pass's plane in place; int16
+    mode reads its int16 plane once into the int32 sum."""
+    pen = {d: (1.0, 2.0) for d in sgm.DIRECTIONS_4}
+    groups = sgm._groups(sgm.DIRECTIONS_4, pen, 8, 32, 1)[1:]
+    f32 = torch.zeros((1, 8, 8, 32))
+    assert _recorded_ops(groups, False, f32) == [
+        ((0, -1), "S", None, "S"), ((1, 0), "S", None, "S"),
+        ((-1, 0), "S", None, "S")]
+    i16 = torch.zeros((1, 8, 8, 32), dtype=torch.int16)
+    assert _recorded_ops(groups, True, i16) == [
+        ((0, -1), "S", None, "F"), ((1, 0), "S", None, "S"),
+        ((-1, 0), "S", None, "S")]
+    # the forward pass alone: its int16 plane becomes the int32 sum
+    S = sgm.fold_paths(torch.zeros((1, 8, 8, 32), dtype=torch.uint8), [],
+                       True, sgm.sgm_volume_step_plain, i16 + 7)
+    assert S.dtype == torch.int32 and bool((S == 7).all())
