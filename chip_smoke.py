@@ -23,8 +23,12 @@ final result line) on the first thing that is wrong:
      and bpm < 0, 4 and 8 paths, 9x9 and 17x17 census (the unclamped
      forward plane): costs and the int16 / float32 running sums after
      every sweep bit-equal; valid masks identical, disparities within
-     1e-4, gathers bit-equal. Level 0 times every sweep, the up-sweep
-     with and without the WTA, and the stage. ``census_cost`` alone also
+     1e-4, gathers bit-equal; the row gather also alone on random
+     indices and anchors at radius 0, 17, 63 and 200 (wider than its
+     staged window), W = 131, 256, 300 and 512, H = 8, 16 and 64, and
+     rows off 16-byte alignment. Level 0 times every sweep, the up-sweep
+     with and without the WTA, and the stage, and the row gather beside
+     ``torch.gather``. ``census_cost`` alone also
      where its strips and runs are ragged: 5x5, 9x9 and 17x17 census
      (NW = 1, 3, 9), D = 8, 32, 48, bpm = 5, -16, 300, -300 (beyond a
      strip on either side), B = 2, W_real < W, H_real < H, and rows of
@@ -91,8 +95,10 @@ final result line) on the first thing that is wrong:
    (timed), a 17x17 census, non-uniform bases below -64 and a ragged
    B = 2 frame (W = 131) at D = 48 and at D = 32, there also with bases
    that leave whole rows without a valid column, 5x5 and 17x17 words and
-   a partial last warp; the BT kernel at 1x1024x1280x128 (timed) and at a ragged
-   D = 130 with a negative minimum disparity; then ``fused_census_sgm``
+   a partial last warp; the BT kernel at 1x1024x1280x128 (timed) and on
+   the ragged B = 2 frame at D = 1, 16, 48, 128, 130, 256, 300, 384 and
+   512, W = 131, 64 and 20 (narrower than one staged tile), negative
+   minimum disparities and bases that empty rows; then ``fused_census_sgm``
    (4 paths, level 0's shape, and 8 paths on the ragged frame) and
    ``fused_bt_sgm`` (8 paths, 1024x1280x128) whole against their twins
    (at level 0's shape in the int16 and the float32 mode);
@@ -120,7 +126,11 @@ the timed shape) and, where one PyTorch call
 computes the same function (``grid_sample`` for the remap), that call's
 time; for the row gather it is the time of the whole function in PyTorch
 calls (anchor lookup, both clamps, ``x - e``, ``torch.gather``), with the
-``torch.gather`` alone on a ready index as a second figure.
+``torch.gather`` alone on a ready index as a second figure. Every ``ms``
+is CUDA events around one wrapper call. ``back_to_back_ms`` is the time a
+call where calls are issued back to back (the row gather's through its C
+entry, since its wrapper's host work outlasts it), and the row gather's
+``library_*back_to_back_ms`` are its PyTorch calls timed the same way.
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -166,7 +176,7 @@ SOURCES = {
     # csrc/fused_cost_sgm.cu's
     "fused_census_fwd": ("i3dr_stereo_tpu_torch/csrc/fused_census32.cu",
                          "i3dr_stereo_tpu/ops/fused_cost_sgm.py:201"),
-    "fused_bt_fwd": ("i3dr_stereo_tpu_torch/csrc/fused_cost_sgm.cu",
+    "fused_bt_fwd": ("i3dr_stereo_tpu_torch/csrc/fused_bt.cu",
                      "i3dr_stereo_tpu/ops/fused_cost_sgm.py:348"),
 }
 # the kernels of each main path: the flagship frame, the SGBM frame
@@ -189,7 +199,7 @@ KERNEL_SYMBOLS = ("census_cost_kernel", "sgm_sweep_kernel",
                   "row_gather_kernel", "remap_kernel", "ccl_local",
                   "ccl_boundary", "ccl_count", "ccl_keep",
                   "sgm_volume_kernel",
-                  "fused_fwd_kernel", "census32_kernel")
+                  "census_fwd_kernel", "census32_kernel", "bt_fwd_kernel")
 # accuracy_bench.py:sgbm_1280's scene and size
 H_SGBM, W_SGBM = 1024, 1280
 SGBM_SCENE = dict(max_disp=120, background_disp=8, layers=5, seed=21)
@@ -219,6 +229,37 @@ def gpu_ms(fn, iters: int = 10, warmup: int = 2) -> float:
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def back_to_back_ms(fn, iters: int = 50, warmup: int = 5) -> float:
+    """Device time of one call of ``fn`` where the host issues calls
+    faster than the card runs them: CUDA events around ``iters`` calls
+    issued back to back, over ``iters``. For kernels so short that events
+    around one call time the host's launch."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / iters
+
+
+def row_gather_entry(src, idx, q, radius, out):
+    """A call of the row gather's C entry with no wrapper around it (the
+    wrapper's checks cost the host more than the kernel costs the card)."""
+    from i3dr_stereo_tpu_torch import _build
+
+    B, H, W = src.shape
+    lib, stream = _build.library(), _build.stream_of(src)
+    args = (src.data_ptr(), idx.data_ptr(), q.data_ptr(), out.data_ptr(), B,
+            H, W, q.shape[1], q.shape[2], int(radius), stream)
+    check(lib.i3dr_row_gather(*args) == 0, "i3dr_row_gather failed")
+    return lambda: lib.i3dr_row_gather(*args)
 
 
 def gpu_times(fn, iters: int) -> list:
@@ -635,17 +676,32 @@ def phase_kernels(stats, card):
     dev = torch.device(DEVICE)
     cfg = flagship_cfg(params)
 
-    # E: random indices and anchors that hit both clamps, bit-equal
+    # E: random indices and anchors that hit both clamps, bit-equal; the
+    # radius 0, one whose window is wider than the staged one (200: the
+    # read-only path), W = 131 (no multiple of 4 or 128: the pixel-by-pixel
+    # tail), H = 8 (one anchor row), and rows that start off 16-byte
+    # alignment (views one element into a buffer)
     rng = np.random.default_rng(0)
-    B, H, W = 2, 64, 300
-    src = torch.tensor(rng.uniform(0, 255, (B, H, W)), dtype=torch.float32,
-                       device=dev)
-    idx = torch.tensor(rng.integers(-60, W + 60, (B, H, W)),
-                       dtype=torch.int32, device=dev)
-    q = torch.tensor(rng.integers(-20, W + 20, (B, H // 8, (W + 127) // 128)),
-                     dtype=torch.int32, device=dev)
-    compare_gather(bg, src, idx, q, 17, "random idx/q", stats)
-    print("row_gather (random idx/q, both clamps): bit-equal", flush=True)
+    for B, H, W, r, shifted in (
+            (2, 64, 300, 17, False), (2, 64, 300, 0, False),
+            (2, 64, 300, 200, False), (2, 16, 131, 17, False),
+            (1, 8, 256, 63, False), (1, 8, 131, 200, False),
+            (2, 16, 512, 16, True)):
+        src = torch.tensor(rng.uniform(0, 255, (B, H, W)),
+                           dtype=torch.float32, device=dev)
+        idx = torch.tensor(rng.integers(-60, W + 60, (B, H, W)),
+                           dtype=torch.int32, device=dev)
+        q = torch.tensor(rng.integers(-20, W + 20,
+                                      (B, -(-H // 8), -(-W // 128))),
+                         dtype=torch.int32, device=dev)
+        if shifted:
+            src, idx = (torch.cat([t.new_zeros(1), t.flatten()])[1:]
+                        .view(B, H, W) for t in (src, idx))
+        compare_gather(bg, src, idx, q, r, f"random idx/q {B}x{H}x{W} r={r}"
+                       + (" unaligned" if shifted else ""), stats)
+    print("row_gather (random idx/q, both clamps; radius 0, 17, 63, 200; W "
+          "131, 256, 300, 512; H 8, 16, 64; unaligned rows): bit-equal",
+          flush=True)
 
     pens = [(cfg.p1, cfg.p2)] * 4
     sc = layered_scene(H_FULL, W_FULL, **SCENE)
@@ -656,8 +712,17 @@ def phase_kernels(stats, card):
             rw = compare_gather(bg, rp, pred_eff, q, 16,
                                 f"level {level} warp", stats)
         if level == 0:
+            # ms on every kernel's yardstick: CUDA events around one
+            # wrapper call. A call of a kernel this short is outlasted by
+            # its wrapper's host work, so its device time is also read
+            # through its C entry, 50 calls back to back, under a key of
+            # its own, beside torch.gather's timed the same way
             stats["row_gather"]["ms"] = gpu_ms(
                 lambda: bg.block_shift_gather(rp, pred_eff, q, 16))
+            out = torch.empty_like(rp)
+            entry = row_gather_entry(rp, pred_eff, q, 16, out)
+            check(torch.equal(out, rw), "row_gather's C entry differs")
+            stats["row_gather"]["back_to_back_ms"] = back_to_back_ms(entry)
             stats["row_gather"]["plain_ms"] = gpu_ms(
                 lambda: bg.block_shift_gather_plain(rp, pred_eff, q, 16),
                 iters=1, warmup=0)
@@ -674,12 +739,40 @@ def phase_kernels(stats, card):
                 return torch.gather(rp, 2, (xs - e).clamp(0, Wp - 1).long())
 
             col = (xs - pred_eff).clamp(0, Wp - 1).long()
+            gather_ready = lambda: torch.gather(rp, 2, col)
             check(torch.equal(gather_whole(), rw)
-                  and torch.equal(torch.gather(rp, 2, col), rw),
+                  and torch.equal(gather_ready(), rw),
                   "torch.gather differs from row_gather")
-            stats["row_gather"]["library_ms"] = gpu_ms(gather_whole)
-            stats["row_gather"]["library_ready_index_ms"] = gpu_ms(
-                lambda: torch.gather(rp, 2, col))
+            st = stats["row_gather"]
+            st["library_ms"] = gpu_ms(gather_whole)
+            st["library_ready_index_ms"] = gpu_ms(gather_ready)
+            st["library_back_to_back_ms"] = back_to_back_ms(gather_whole)
+            st["library_ready_index_back_to_back_ms"] = back_to_back_ms(
+                gather_ready)
+            # the card's streaming rate at the same bytes: an elementwise
+            # PyTorch kernel that reads the source and the index and
+            # writes one float a pixel
+            stream_ms = back_to_back_ms(lambda: torch.add(rp, pred_eff))
+            print(f"row_gather at level 0 [{card}]: by events around one "
+                  f"call {st['ms']:.4f} ms (bound {st['bound_ms']:.4f} ms, "
+                  f"{st['bound_ms'] / st['ms']:.0%} of it reached), the "
+                  f"function in PyTorch calls {st['library_ms']:.4f} ms, "
+                  f"torch.gather on a ready index "
+                  f"{st['library_ready_index_ms']:.4f} ms; 50 calls back to "
+                  f"back, a call: the kernel's C entry "
+                  f"{st['back_to_back_ms']:.4f} ms "
+                  f"({st['bound_ms'] / st['back_to_back_ms']:.0%} of the "
+                  f"bound), the function in PyTorch calls "
+                  f"{st['library_back_to_back_ms']:.4f} ms, torch.gather on "
+                  f"a ready index "
+                  f"{st['library_ready_index_back_to_back_ms']:.4f} ms, "
+                  f"torch.add (source + index, the same bytes) "
+                  f"{stream_ms:.4f} ms", flush=True)
+            # kernel against kernel: device time on both sides
+            check(st["back_to_back_ms"]
+                  < st["library_ready_index_back_to_back_ms"],
+                  "row_gather's kernel is slower than torch.gather on a "
+                  "ready index (both 50 calls back to back)")
         compare_level(
             sf, bg, census_transform(lp, cfg.census_height, cfg.census_width),
             census_transform(rw, cfg.census_height, cfg.census_width),
@@ -1258,21 +1351,22 @@ def sgbm_cfg(params):
         num_directions=8, subpixel=True)
 
 
-def sgbm_pipe():
-    """The SGBM frame: ``accuracy_bench.py:sgbm_1280``'s scene and config,
-    raw uint8 in, rectified on the ideal rig. Returns (pipe, left, right,
+def sgbm_pipe(window_size=5, lean=False):
+    """The SGBM frame: ``accuracy_bench.py:sgbm_1280``'s scene and config
+    (at another ``window_size`` and through ``lean`` where asked), raw
+    uint8 in, rectified on the ideal rig. Returns (pipe, left, right,
     scene, cfg, cloud)."""
     from i3dr_stereo_tpu_torch.config import params
     from i3dr_stereo_tpu_torch.core import camera
     from i3dr_stereo_tpu_torch.io.synthetic import layered_scene
     from i3dr_stereo_tpu_torch.pipeline.stereo_pipeline import StereoPipeline
 
-    cfg = sgbm_cfg(params)
+    cfg = sgbm_cfg(params).replace(window_size=window_size)
     sc = layered_scene(H_SGBM, W_SGBM, **SGBM_SCENE)
     rig = camera.StereoRig.synthetic(W_SGBM, H_SGBM, fx=580.0,
                                      baseline_m=0.3)
     cloud = params.PointCloudConfig(depth_max=100.0, depth_min=0.5)
-    pipe = StereoPipeline(rig, cfg, cloud, device=DEVICE)
+    pipe = StereoPipeline(rig, cfg, cloud, device=DEVICE, lean=lean)
     check(pipe.rectify_inputs, "the SGBM frame must rectify")
     left = torch.tensor(raw_u8(sc.left), device=DEVICE)
     right = torch.tensor(raw_u8(sc.right), device=DEVICE)
@@ -1386,15 +1480,20 @@ def time_fused(name, kernel, args, kw, plain_ms, nbytes_in, ops_per_pair,
     ms32 = gpu_ms(lambda: kernel(*args, **dict(kw, out_dtype=torch.float32)))
     kw = dict(kw, out_dtype=torch.int16)
     ms = gpu_ms(lambda: kernel(*args, **kw))
+    b2b32 = back_to_back_ms(
+        lambda: kernel(*args, **dict(kw, out_dtype=torch.float32)), iters=10)
+    b2b = back_to_back_ms(lambda: kernel(*args, **kw), iters=10)
     C, _ = kernel(*args, **kw)
     n = C.numel()
     nbytes = nbytes_in + 3 * n      # inputs in; uint8 C and int16 S out
     if record:
         stats[name]["ms"], stats[name]["plain_ms"] = ms, plain_ms
+        stats[name]["back_to_back_ms"] = b2b
         set_bound(stats, name, nbytes, ops_per_pair * n,
                   npopc=popc_per_pair * n)
     print(f"{label} [{card}]: {name} {ms:.4f} ms with int16 S, {ms32:.4f} "
-          f"with float32 (plain twin {plain_ms:.1f} ms; int16: "
+          f"with float32 (back to back {b2b:.4f}, {b2b32:.4f}; "
+          f"plain twin {plain_ms:.1f} ms; int16: "
           f"{nbytes / 1e9:.3f} GB moved once, "
           f"{nbytes / PEAK_BYTES_S * 1e3:.4f} ms at the HBM peak, "
           f"{nbytes / ms / 1e6:.1f} GB/s reached"
@@ -1538,6 +1637,24 @@ def phase_fused(stats, card):
                          "ragged 2x44x131 D=130 min_disp=-2 non-uniform base",
                          stats)
     check(bool((C[C < 255] % 2 == 1).any()), "BT: no half-sample cost")
+    # every path of the staged kernel, B = 2: W % 8 != 0 (131: the tail
+    # walked column by column), a row narrower than one 32-column tile and
+    # than the D + 1 halo (20), whole tiles only (64); D = 1, 16, 48 (2 a
+    # lane), 128 and 256 (whole 16-byte stores), 130, 300 (12 a lane), 384,
+    # 512; negative minimum disparities; bases that empty whole row tiles
+    for D_k, md, base_k, W_k in ((1, 0, ragged, 131), (16, -3, empty, 131),
+                                 (48, 1, ragged, 131), (128, 0, ragged, 131),
+                                 (128, -5, empty, 131), (130, 2, empty, 131),
+                                 (256, 0, ragged, 131), (300, -7, ragged, 131),
+                                 (512, 4, ragged, 131), (128, 0, ragged, 20),
+                                 (512, -2, empty, 20), (128, 3, ragged, 64),
+                                 (384, 0, empty, 64)):
+        compare_fused(*K, (pa[..., :W_k].contiguous(),
+                           pb[..., :W_k].contiguous(), base_k, D_k, 16.0,
+                           64.0), dict(min_disp=md),
+                      f"ragged 2x44x{W_k} D={D_k} min_disp={md} "
+                      + ("bases that empty rows" if base_k is empty
+                         else "non-uniform base"), stats)
 
     # the whole aggregations at the two main paths' shapes: J's int16 plane
     # (int16 mode) or its float32 plane folded into by the sgm_volume chain
@@ -1639,26 +1756,16 @@ def phase_lean_flagship(stats, card):
 def phase_lean_sgbm(stats, card):
     import functools
 
-    from i3dr_stereo_tpu_torch.config import params
-    from i3dr_stereo_tpu_torch.core import camera
     from i3dr_stereo_tpu_torch.io.synthetic import layered_scene
     from i3dr_stereo_tpu_torch.matchers import registry
     from i3dr_stereo_tpu_torch.ops import fused_cost_sgm as fcs
-    from i3dr_stereo_tpu_torch.pipeline.stereo_pipeline import StereoPipeline
 
     # the lean condition is window_size <= 1; everything else unchanged
-    cfg = sgbm_cfg(params).replace(window_size=1)
-    sc = layered_scene(H_SGBM, W_SGBM, **SGBM_SCENE)
-    rig = camera.StereoRig.synthetic(W_SGBM, H_SGBM, fx=580.0,
-                                     baseline_m=0.3)
-    cloud = params.PointCloudConfig(depth_max=100.0, depth_min=0.5)
-    left = torch.tensor(raw_u8(sc.left), device=DEVICE)
-    right = torch.tensor(raw_u8(sc.right), device=DEVICE)
     pipes, peaks = {}, {}
     for lean in (True, False):
         name = "lean" if lean else "default"
-        pipes[name] = StereoPipeline(rig, cfg, cloud, device=DEVICE,
-                                     lean=lean)
+        pipes[name], left, right, sc, cfg, _ = sgbm_pipe(window_size=1,
+                                                         lean=lean)
         torch.cuda.reset_peak_memory_stats()
         drive_frame(pipes[name], left, right, sc,
                     LEAN_SGBM_KERNELS if lean else SGBM_KERNELS,
@@ -1788,7 +1895,8 @@ def main() -> int:
                 "bound_bytes_ms": s["bound_bytes_ms"],
                 "bound_popcounts": s["bound_popcounts"],
                 "library_ms": s["library_ms"],
-                **{x: s[x] for x in s if x.startswith("library_ready")}}
+                **{x: s[x] for x in s
+                   if x.startswith("library_") or x == "back_to_back_ms"}}
                for k, s in stats.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

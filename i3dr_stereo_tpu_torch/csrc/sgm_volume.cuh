@@ -43,9 +43,9 @@
 // Design: one warp a scanline. Each lane holds K = ceil(D/32) (1, 2, 4, 8,
 // 12 or 16) consecutive disparities of the carry in registers, so d-1 /
 // d+1 cross lanes only at a lane's two ends (one shuffle each); min_d is
-// an in-lane min and the 5-step butterfly (sgm_step.cuh). Where the lanes
-// tile D exactly and K is a multiple of 4, every plane moves as vectors of
-// four elements; any other D goes element by element. Arithmetic is the
+// an in-lane min and the warp's hardware minimum (sgm_step.cuh). Where
+// the lanes tile D exactly and K is a multiple of 4, every plane moves as
+// vectors of four elements; any other D goes element by element. Arithmetic is the
 // reference's float32 sequence, rounded per operation (__fadd_rn /
 // __fsub_rn), so the kernel equals its torch twin bit for bit.
 //

@@ -11,9 +11,12 @@ the forward pass's plane (float32, or in int16 mode int16, as the
 reference asks its kernel for) in place.
 
 - :func:`fused_census_horizontal` — census hamming cost from word planes
-  (kernel ``fused_census_fwd``, the TPU's ``_fused_fwd_kernel``);
+  (kernel ``fused_census_fwd``, the TPU's ``_fused_fwd_kernel``:
+  ``csrc/fused_census32.cu`` at D = 32, ``csrc/fused_cost_sgm.cu`` at any
+  other D);
 - :func:`fused_bt_horizontal` — pixelwise Birchfield-Tomasi cost in
-  doubled units (kernel ``fused_bt_fwd``, the TPU's ``_fused_bt_kernel``);
+  doubled units (kernel ``fused_bt_fwd``, the TPU's ``_fused_bt_kernel``:
+  ``csrc/fused_bt.cu``);
 - :func:`fused_census_sgm`, :func:`fused_bt_sgm` — the full aggregation:
   the int32 sum of int16-stored group totals (or a float32 sum) in the
   TPU's order, the forward pass first.

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """The flagship SGM stage, the census-cost kernels, the volume SGM
-aggregation, the speckle filter, both flagship frames and the SGBM frame
-of one or more checkouts of the PyTorch + CUDA port, measured in turns on
-one NVIDIA GPU.
+aggregation, the speckle filter, the BT forward pass, the row gather, both
+flagship frames and the SGBM frames of one or more checkouts of the
+PyTorch + CUDA port, measured in turns on one NVIDIA GPU.
 
     python3 sgm_stage_bench.py [--only SECTION,...] [ROOT ...]
 
@@ -14,7 +14,7 @@ process of its own, builds its own kernels and prints one JSON line; the
 scene, the level-0 inputs, the timing and the profile window are
 ``chip_smoke.py``'s of this checkout, so only the package differs.
 
-Per ROOT, with the card's name and power limit, in five sections
+Per ROOT, with the card's name and power limit, in seven sections
 (``--only`` names those to run, comma-separated; all by default):
 
 - ``level0``: level 0 of the flagship pyramid (2448x2048 padded to
@@ -34,12 +34,24 @@ Per ROOT, with the card's name and power limit, in five sections
 - ``speckle``: ``speckle_keep`` on the flagship frame's level-0
   disparities after the downsample-2 front-end (1224x1024, S = 25): ms
   (median of 10) and a digest of the keep-mask;
+- ``bt_fwd``: ``fused_bt_horizontal`` (K) at the lean window-1 SGBM
+  frame's shape (1x1024x1280x128, that frame's prefiltered scene, base
+  0, P1/P2 400/800 in doubled units), int16 and float32 path costs: ms
+  (median of 10), ms a call of 10 back to back
+  (``chip_smoke.back_to_back_ms``) and a digest of C and S in each mode;
+- ``row_gather``: ``block_shift_gather`` (E) at level 0 of the flagship
+  pyramid: the warp of the right image (radius 16) and the backmatch
+  lookup (radius 17, on level 0's right-anchored disparities): ms (median
+  of 10), ms a call of its C entry 50 back to back (the wrapper's host
+  work outlasts the kernel) and a digest of both outputs;
 - ``frames``: the flagship frame, the lean flagship frame (raw uint8 ->
-  rectify -> pyramid with speckle -> depth, cloud, crop) and the SGBM
-  frame (``accuracy_bench.py``'s 1280x1024 scene and config): ms/frame
-  (median of 10), peak memory, ``chip_smoke.py``'s five-frame profile
-  (device busy, idle share, the census kernels' and the volume SGM
-  kernels' time a frame) and a digest of the disparity and valid mask.
+  rectify -> pyramid with speckle -> depth, cloud, crop), the SGBM frame
+  (``accuracy_bench.py``'s 1280x1024 scene and config) and that frame at
+  window 1 through ``lean=True`` (the BT forward pass): ms/frame (median
+  of 10), peak memory, ``chip_smoke.py``'s five-frame profile (device
+  busy, idle share, the census kernels', the volume SGM kernels' and the
+  BT forward pass's time a frame) and a digest of the disparity and
+  valid mask.
 
 The last line says whether all roots gave the same digests.
 
@@ -58,15 +70,21 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
 # the census-cost kernels' names in a profile: census_cost, and the fused
-# census forward pass in either of its kernels
-CENSUS_SYMBOLS = ("census_cost_kernel", "census32_kernel", "CensusCost")
+# census forward pass in any of its kernels
+CENSUS_SYMBOLS = ("census_cost_kernel", "census32_kernel", "CensusCost",
+                  "census_fwd_kernel")
 # the volume SGM kernels' names: the per-direction kernel and the sum pass
 # a parent may have
 VOLUME_SYMBOLS = ("sgm_volume_kernel", "sgm_volume_sum_kernel")
-SECTIONS = ("level0", "lean_level0", "sgbm_aggregate", "speckle", "frames")
+# the BT forward pass: its kernel, or a parent's census-or-BT kernel at BT
+BT_SYMBOLS = ("bt_fwd_kernel", "BtCost")
+SECTIONS = ("level0", "lean_level0", "sgbm_aggregate", "speckle", "bt_fwd",
+            "row_gather", "frames")
 DIGESTS = ("frame_digest", "lean_frame_digest", "sgbm_frame_digest",
-           "level0_digest", "lean_level0_digest", "lean_level0_sgm_digest",
-           "sgbm_aggregate_digest", "speckle_digest")
+           "lean_sgbm1_frame_digest", "level0_digest", "lean_level0_digest",
+           "lean_level0_sgm_digest", "sgbm_aggregate_digest",
+           "speckle_digest", "bt_fwd_int16_digest", "bt_fwd_float32_digest",
+           "row_gather_digest")
 
 
 def digest(*tensors) -> str:
@@ -116,6 +134,10 @@ def measure(root: Path, sections) -> dict:
         out["speckle_digest"] = digest(keep())
         del dd, vv
         torch.cuda.empty_cache()
+    if "bt_fwd" in sections:
+        bt_fwd(out, cs)
+    if "row_gather" in sections:
+        row_gather(out, cs, cfg, sc)
     if "frames" in sections:
         frames(out, cs, card, root.name)
     return out
@@ -199,14 +221,77 @@ def sgbm_aggregate(out, cs):
     torch.cuda.empty_cache()
 
 
+def bt_fwd(out, cs):
+    """K at the lean window-1 SGBM frame's shape, both modes."""
+    import torch
+    from i3dr_stereo_tpu_torch.io.synthetic import layered_scene
+    from i3dr_stereo_tpu_torch.ops import fused_cost_sgm as fcs
+    from i3dr_stereo_tpu_torch.ops.cost import xsobel_prefilter
+
+    ssc = layered_scene(cs.H_SGBM, cs.W_SGBM, **cs.SGBM_SCENE)
+    lp, rp = (xsobel_prefilter(torch.tensor(cs.raw_u8(img), device=cs.DEVICE)
+                               .float()[None], 31).contiguous()
+              for img in (ssc.left, ssc.right))
+    base = torch.zeros((cs.H_SGBM // fcs.row_tile(cs.H_SGBM),),
+                       dtype=torch.int32, device=cs.DEVICE)
+    for od in (torch.int16, torch.float32):
+        call = lambda: fcs.fused_bt_horizontal(lp, rp, base, 128, 400.0,
+                                               800.0, out_dtype=od)
+        name = str(od)[6:]
+        out[f"bt_fwd_{name}_ms"] = cs.gpu_ms(call)
+        out[f"bt_fwd_{name}_b2b_ms"] = cs.back_to_back_ms(call, iters=10)
+        out[f"bt_fwd_{name}_digest"] = digest(*call())
+    del lp, rp
+    torch.cuda.empty_cache()
+
+
+def row_gather(out, cs, cfg, sc):
+    """E at level 0 of the flagship pyramid: the warp and the backmatch
+    lookup, as the pyramid makes them."""
+    import torch
+    from i3dr_stereo_tpu_torch.ops import block_gather as bg
+    from i3dr_stereo_tpu_torch.ops import sgm_fused_t as sf
+    from i3dr_stereo_tpu_torch.ops.census import census_transform
+
+    _, lp, rp, pred, q, bpm, Hh, Wh = next(cs.flagship_levels(cfg, sc))
+    warp = lambda: bg.block_shift_gather(rp, pred, q, 16)
+    out["row_gather_warp_ms"] = cs.gpu_ms(warp)
+    rw = warp()
+    out["row_gather_warp_b2b_ms"] = cs.back_to_back_ms(
+        cs.row_gather_entry(rp, pred, q, 16, torch.empty_like(rp)))
+    cl = census_transform(lp, cfg.census_height, cfg.census_width)
+    cr = census_transform(rw, cfg.census_height, cfg.census_width)
+    d, C = sf.census_sgm_wta(cl, cr, 32, bpm=bpm, H_real=Hh, W_real=Wh,
+                             pens=[(cfg.p1, cfg.p2)] * 4, directions=4,
+                             subpixel=True,
+                             uniqueness_ratio=cfg.uniqueness_ratio)
+    del cl, cr
+    # the lookup as matchers/pyramid.py:_backmatch_check_true makes it
+    d_r, v_r = sf.right_disparity_from_C(C, bpm, Wh)
+    src = torch.where(v_r, d_r, 1.0e9).contiguous()
+    idx = torch.round(torch.where(d > -1e8, d + float(bpm), 0.0)).to(
+        torch.int32).contiguous()
+    qb = torch.full(q.shape, bpm + 16, dtype=torch.int32, device=cs.DEVICE)
+    lookup = lambda: bg.block_shift_gather(src, idx, qb, 17)
+    out["row_gather_backmatch_ms"] = cs.gpu_ms(lookup)
+    out["row_gather_backmatch_b2b_ms"] = cs.back_to_back_ms(
+        cs.row_gather_entry(src, idx, qb, 17, torch.empty_like(src)))
+    out["row_gather_digest"] = digest(rw, lookup())
+    del C, lp, rp, rw, src, idx
+    torch.cuda.empty_cache()
+
+
 def frames(out, cs, card, label):
-    """The flagship frame, the lean flagship frame and the SGBM frame."""
+    """The flagship frame, the lean flagship frame, the SGBM frame and the
+    lean window-1 SGBM frame."""
     import torch
     from i3dr_stereo_tpu_torch import _build
 
     for name, make in (("frame", cs.flagship_pipe),
                        ("lean_frame", lambda: cs.flagship_pipe(lean=True)),
-                       ("sgbm_frame", cs.sgbm_pipe)):
+                       ("sgbm_frame", cs.sgbm_pipe),
+                       ("lean_sgbm1_frame",
+                        lambda: cs.sgbm_pipe(window_size=1, lean=True))):
         pipe, left, right, sc, cfg, _ = make()
         torch.cuda.reset_peak_memory_stats()
         res = cs.drive_frame(pipe, left, right, sc, (), f"{label} {name}",
@@ -221,7 +306,7 @@ def frames(out, cs, card, label):
         out[f"{name}_busy_ms"] = prof["busy_ms"]
         out[f"{name}_idle_share"] = prof["idle_share"]
         for key, symbols in (("census", CENSUS_SYMBOLS),
-                             ("volume", VOLUME_SYMBOLS)):
+                             ("volume", VOLUME_SYMBOLS), ("bt", BT_SYMBOLS)):
             out[f"{name}_{key}_kernels_ms"] = sum(
                 ms for k, ms in prof["names_ms"].items()
                 if any(sym in k for sym in symbols))

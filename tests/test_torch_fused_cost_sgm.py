@@ -219,6 +219,10 @@ BT_CASES = {
     "D32_min_disp": ((2, 8, 48), 32, 4, 0),
     "D48_nonuniform_base": ((1, 24, 56), 48, 0, (3, -16, 0)),
     "D130": ((1, 8, 160), 130, 0, 0),
+    # a row narrower than the D + 1 halo and than one staged tile
+    "D128_narrow": ((1, 8, 48), 128, 0, 0),
+    # the second row tile's base leaves it no valid column
+    "D16_empty_tile": ((2, 16, 40), 16, 0, (0, 60)),
 }
 
 

@@ -130,6 +130,8 @@ def test_block_anchors_match():
     (1, 16, 128, 16, 0),     # the warp: anchor band of the residual window
     (2, 24, 300, 17, 1),     # the backmatch lookup radius, ragged width
     (1, 16, 70, 5, 2),
+    (1, 8, 131, 63, 3),      # the reference's largest radius; W % 4, W % 128
+    (2, 16, 256, 0, 4),      # radius 0
 ])
 def test_block_shift_gather_matches_interpret(B, H, W, radius, seed):
     """Random indices and anchors reach both clamps: the anchor band and
