@@ -38,7 +38,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # kernel name -> launches since the last reset_launches()
 LAUNCHES = {"census_cost": 0, "sgm_sweep": 0, "sgm_sweep_wta": 0,
             "row_gather": 0, "remap": 0, "speckle_ccl": 0, "sgm_volume": 0,
-            "fused_census_fwd": 0, "fused_bt_fwd": 0}
+            "fused_census_fwd": 0, "fused_bt_fwd": 0, "census_transform": 0}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry -> argtypes (pointers and the stream as c_void_p: a bare Python
@@ -55,9 +55,13 @@ _SIGNATURES = {
                            _F, _P),
     # src, idx, q, out, B, H, W, Hq, Wq, radius, stream
     "i3dr_row_gather": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    # src, src_u8, flat_idx, wx, wy, out, B, H, W, src_h, src_w, pad, taps,
-    # stream
-    "i3dr_remap": (_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # src0, src1 (or null), src_u8, flat_idx0, flat_idx1 (or null),
+    # weights0, weights1 (or null), out0, out1 (or null), B, H, W, src_h,
+    # src_w, pad, taps, stream
+    "i3dr_remap": (_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                   _I, _I, _P),
+    # a, b (or null), out_a, out_b (or null), B, H, W, window h, w, stream
+    "i3dr_census_transform": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # d, valid, labels, sizes, keep, B, H, W, max_size, max_diff, stream
     "i3dr_speckle_ccl": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
     # C, u8, out, out_i32, x (or null), acc (or null), acc_kind, B, H, W,
@@ -170,15 +174,23 @@ def require_cuda(*tensors: torch.Tensor) -> None:
 
 
 def stream_of(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The raw handle of the current stream of ``t``'s device: 0.2 us a
+    call on the host of an NVIDIA H100 machine, where building a
+    ``torch.cuda.Stream`` to read it takes 5-6 us
+    (``kernel_probes/probe6.py``)."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def launch(entry: str, kernel: str, device: torch.device, *args) -> None:
     """Call C entry ``entry`` on ``device``; raise on a CUDA error, else
-    count one launch of ``kernel``."""
+    count one launch of ``kernel``. The device is made current only where
+    it is not already (a device context costs 3-4 us a call there)."""
     lib = library()
-    with torch.cuda.device(device):
+    if device.index == torch.cuda.current_device():
         err = getattr(lib, entry)(*args)
+    else:
+        with torch.cuda.device(device):
+            err = getattr(lib, entry)(*args)
     if err != 0:
         raise RuntimeError(f"{entry}: CUDA error {err} "
                            f"({lib.i3dr_error_string(err).decode()})")

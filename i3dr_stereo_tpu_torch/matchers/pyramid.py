@@ -56,7 +56,7 @@ from i3dr_stereo_tpu_torch.ops.block_gather import (
     block_shift_gather_plain,
     pad_edge,
 )
-from i3dr_stereo_tpu_torch.ops.census import census_transform
+from i3dr_stereo_tpu_torch.ops.census import census_transform_pair
 from i3dr_stereo_tpu_torch.ops.fused_cost_sgm import fused_census_sgm
 from i3dr_stereo_tpu_torch.ops.median import median3x3, median3x3_masked
 from i3dr_stereo_tpu_torch.ops.sgm import DIRECTIONS_4, DIRECTIONS_8
@@ -284,8 +284,7 @@ def _match_level_fused_t(ll, rr, pred_int, base_val: int, K: int, pens,
         offset = (pred_eff[:, :Hh, :Wh] + bpm).to(torch.float32)
 
     ch, cw = census_hw
-    cl = census_transform(llp, ch, cw)
-    cr = census_transform(rw, ch, cw)
+    cl, cr = census_transform_pair(llp, rw, ch, cw, plain=plain)
     disp_p, C = census_sgm_wta(cl, cr, K8, bpm=bpm, W_real=Wh, H_real=Hh,
                                pens=pens, directions=num_directions,
                                subpixel=subpixel,
@@ -350,8 +349,8 @@ def _match_level_lean(ll, rr, pred_int, base_val: int, K: int, pens, dirs,
         offset = (pred_int + fused_base).to(torch.float32)
     H8, W8 = _ceil_to(Hh, 8), _ceil_to(Wh, 8)
     ch, cw = census_hw
-    cl = census_transform(pad_edge(ll, H8, W8), ch, cw)
-    cr = census_transform(pad_edge(rw, H8, W8), ch, cw)
+    cl, cr = census_transform_pair(pad_edge(ll, H8, W8),
+                                   pad_edge(rw, H8, W8), ch, cw, plain=plain)
     S, C = fused_census_sgm(cl, cr, K, base=fused_base,
                             per_direction_penalties=pens, directions=dirs,
                             out_dtype=torch.int16, plain=plain)

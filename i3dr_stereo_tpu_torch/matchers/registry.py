@@ -39,7 +39,8 @@ from i3dr_stereo_tpu_torch.config.params import (
 )
 from i3dr_stereo_tpu_torch.matchers.base import MatchResult
 from i3dr_stereo_tpu_torch.matchers.pyramid import pyramid_sgm_match
-from i3dr_stereo_tpu_torch.ops.census import census_cost_volume, census_transform
+from i3dr_stereo_tpu_torch.ops.census import (census_cost_volume,
+                                            census_transform_pair)
 from i3dr_stereo_tpu_torch.ops.block_gather import pad_edge
 from i3dr_stereo_tpu_torch.ops.cost import (
     box_aggregate,
@@ -91,8 +92,8 @@ def _directions(cfg: MatcherConfig):
 def _cost_volume(left, right, cfg: MatcherConfig):
     """Pixel costs by the configured cost function, pre-aggregation."""
     if cfg.cost == CostFunction.CENSUS:
-        cl = census_transform(left, cfg.census_height, cfg.census_width)
-        cr = census_transform(right, cfg.census_height, cfg.census_width)
+        cl, cr = census_transform_pair(left, right, cfg.census_height,
+                                       cfg.census_width)
         return census_cost_volume(cl, cr, cfg.min_disparity,
                                   cfg.disparity_range)
     lf = xsobel_prefilter(left, cfg.prefilter_cap)

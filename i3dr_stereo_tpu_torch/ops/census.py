@@ -2,10 +2,15 @@
 
 The matching cost of the flagship I3DRSGM engine (``Feature Set =
 census``, 9x9 window, ini/quick.param:99,105-106): 80 neighbour
-comparisons packed into 3 32-bit words per pixel. Plain torch on every
-device. The flagship's hamming cost over these words is the
-``census_cost`` kernel (:mod:`i3dr_stereo_tpu_torch.ops.sgm_fused_t`);
-the dense matchers' float32 volume is :func:`census_cost_volume`.
+comparisons packed into 3 32-bit words per pixel. On a CUDA tensor
+:func:`census_transform` and :func:`census_transform_pair` (a level's two
+images in one launch) run the ``census_transform`` kernel
+(``csrc/census_transform.cu``; the reference's census is an XLA fusion,
+not a Pallas kernel); on a CPU tensor, or with ``plain=True``, the plain
+torch twin :func:`census_transform_plain`. The flagship's hamming cost
+over these words is the ``census_cost`` kernel
+(:mod:`i3dr_stereo_tpu_torch.ops.sgm_fused_t`); the dense matchers'
+float32 volume is :func:`census_cost_volume`.
 """
 
 from __future__ import annotations
@@ -13,6 +18,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from i3dr_stereo_tpu_torch import _build
 from i3dr_stereo_tpu_torch.ops.sgm_fused_t import _popcount32
 
 BIG_COST = 1.0e9
@@ -27,9 +33,10 @@ def _window_offsets(h: int, w: int):
             if not (dy == 0 and dx == 0)]
 
 
-def census_transform(image: torch.Tensor, height: int = 9,
-                     width: int = 9) -> torch.Tensor:
-    """(B, H, W) or (H, W) image -> (..., H, W, n_words) int32 census words.
+def census_transform_plain(image: torch.Tensor, height: int = 9,
+                           width: int = 9) -> torch.Tensor:
+    """Plain torch twin of the ``census_transform`` kernel: (B, H, W) or
+    (H, W) image -> (..., H, W, n_words) int32 census words.
 
     Same bits as the JAX reference: neighbours in row-major order with
     the centre skipped, bit ``i`` of word ``i // 32`` set when neighbour
@@ -61,6 +68,54 @@ def census_transform(image: torch.Tensor, height: int = 9,
     # two's-complement reinterpretation of the low 32 bits
     out = torch.where(out >= 2 ** 31, out - 2 ** 32, out).to(torch.int32)
     return out if batched else out[0]
+
+
+def _census_kernel(images, height: int, width: int) -> tuple:
+    """One launch of the ``census_transform`` kernel over one image or two
+    of one shape (each (B, H, W) or (H, W)); raises on a tensor that is
+    not on the card. Two images' words share one allocation."""
+    if height % 2 != 1 or width % 2 != 1:
+        raise ValueError(f"census window must be odd, got {height}x{width}")
+    batched = images[0].ndim == 3
+    xs = [(x if batched else x[None]).to(torch.float32).contiguous()
+          for x in images]
+    _build.require_cuda(*xs)
+    B, H, W = xs[0].shape
+    n_words = (height * width - 1 + 31) // 32
+    outs = torch.empty((len(xs), B, H, W, n_words), dtype=torch.int32,
+                       device=xs[0].device)
+    out = outs.data_ptr()
+    pair = len(xs) == 2
+    _build.launch("i3dr_census_transform", "census_transform", xs[0].device,
+                  xs[0].data_ptr(), xs[1].data_ptr() if pair else None, out,
+                  out + 4 * B * H * W * n_words if pair else None, B, H, W,
+                  height, width, _build.stream_of(xs[0]))
+    return (outs if batched else outs[:, 0]).unbind(0)
+
+
+def census_transform(image: torch.Tensor, height: int = 9, width: int = 9,
+                     *, plain: bool = False) -> torch.Tensor:
+    """(B, H, W) or (H, W) image -> (..., H, W, n_words) int32 census words
+    (the bits of :func:`census_transform_plain`). A CPU tensor, or
+    ``plain=True``, runs the twin; a CUDA tensor launches the kernel or
+    raises."""
+    if plain or image.device.type == "cpu":
+        return census_transform_plain(image, height, width)
+    return _census_kernel([image], height, width)[0]
+
+
+def census_transform_pair(left: torch.Tensor, right: torch.Tensor,
+                          height: int = 9, width: int = 9, *,
+                          plain: bool = False):
+    """:func:`census_transform` of a level's left and (warped) right image,
+    which share a shape: one kernel launch for both."""
+    if left.shape != right.shape:
+        raise ValueError(f"census_transform_pair: shapes {tuple(left.shape)} "
+                         f"and {tuple(right.shape)} differ")
+    if plain or (left.device.type == "cpu" and right.device.type == "cpu"):
+        return (census_transform_plain(left, height, width),
+                census_transform_plain(right, height, width))
+    return _census_kernel([left, right], height, width)
 
 
 def census_cost_volume(left_census: torch.Tensor, right_census: torch.Tensor,

@@ -7,12 +7,15 @@ rotation) and the separable Keys (a = -0.75, cv INTER_CUBIC) or linear
 weights are the reference's numpy float64 operations, copied rather than
 imported (importing the JAX package imports JAX), so ``flat_idx``,
 ``wx`` and ``wy`` come out bit-identical to the reference map
-(``tests/test_torch_rectify.py`` pins them).
+(``tests/test_torch_rectify.py`` pins them). The map holds each pixel's
+weights interleaved (``wx`` then ``wy``), so the kernel reads them as
+16-byte vectors; ``wx`` and ``wy`` are views of that one tensor.
 
 Device half: :func:`remap` launches the ``remap`` kernel
 (``csrc/remap.cu``, the port of the TPU's banded ``remap_banded``) for a
 CUDA tensor and runs :func:`remap_plain`, the reference's
-``_remap_gather_impl`` in torch, for a CPU tensor. The TPU's banded
+``_remap_gather_impl`` in torch, for a CPU tensor; :func:`rectify_pair`
+remaps both cameras of a rig in one launch. The TPU's banded
 channelisation (``rectify_pallas.build_banded``) is a gather workaround
 the GPU does not need, so the map carries no banded form.
 """
@@ -85,12 +88,12 @@ class RectifyMap:
 
     ``flat_idx[h, w]`` indexes the top-left tap of the (T x T) stencil in
     the flattened source image edge-padded by ``pad`` on every side;
-    ``wx``/``wy`` are the T horizontal / vertical weights (T=4 cubic,
-    T=2 linear). All three live on one device."""
+    ``weights[h, w]`` holds the T horizontal weights, then the T vertical
+    ones (T=4 cubic, T=2 linear), which ``wx`` / ``wy`` view. Both tensors
+    live on one device."""
 
     flat_idx: torch.Tensor   # (H, W) int32 into the padded flat image
-    wx: torch.Tensor         # (H, W, T) float32
-    wy: torch.Tensor         # (H, W, T) float32
+    weights: torch.Tensor    # (H, W, 2T) float32: wx, then wy
     src_h: int
     src_w: int
     pad: int
@@ -99,6 +102,16 @@ class RectifyMap:
     @property
     def padded_w(self) -> int:
         return self.src_w + 2 * self.pad
+
+    @property
+    def wx(self) -> torch.Tensor:
+        """(H, W, T) float32 horizontal weights (a view)."""
+        return self.weights[..., :self.taps]
+
+    @property
+    def wy(self) -> torch.Tensor:
+        """(H, W, T) float32 vertical weights (a view)."""
+        return self.weights[..., self.taps:]
 
 
 def make_rectify_map(cam: CameraModel, *, interpolation: str = "cubic",
@@ -140,8 +153,8 @@ def make_rectify_map(cam: CameraModel, *, interpolation: str = "cubic",
     flat = (by * (src_w + 2 * pad) + bx).astype(np.int32)
     return RectifyMap(
         flat_idx=torch.as_tensor(flat, device=device),
-        wx=torch.as_tensor(wx.astype(np.float32), device=device),
-        wy=torch.as_tensor(wy.astype(np.float32), device=device),
+        weights=torch.as_tensor(
+            np.concatenate([wx, wy], -1).astype(np.float32), device=device),
         src_h=int(src_h),
         src_w=int(src_w),
         pad=pad,
@@ -187,6 +200,32 @@ def remap_plain(image: torch.Tensor, rmap: RectifyMap) -> torch.Tensor:
     return out if batched else out[0]
 
 
+def _remap_kernel(images, maps) -> tuple:
+    """One launch of the ``remap`` kernel over one camera or two (the same
+    shapes, source type and taps): each image (H, W) or (B, H, W). Two
+    cameras' outputs share one allocation."""
+    images = [x.contiguous() for x in images]
+    m, m1 = maps[0], maps[-1]
+    _build.require_cuda(*images, m.flat_idx, m.weights, m1.flat_idx,
+                        m1.weights)
+    src = images[0]
+    batched = src.ndim == 3
+    B = src.shape[0] if batched else 1
+    H, W = m.flat_idx.shape
+    outs = torch.empty((len(images), B, H, W), dtype=torch.float32,
+                       device=src.device)
+    out = outs.data_ptr()
+    pair = len(images) == 2
+    _build.launch("i3dr_remap", "remap", src.device, src.data_ptr(),
+                  images[1].data_ptr() if pair else None,
+                  int(src.dtype == torch.uint8), m.flat_idx.data_ptr(),
+                  m1.flat_idx.data_ptr() if pair else None,
+                  m.weights.data_ptr(), m1.weights.data_ptr() if pair else None,
+                  out, out + 4 * B * H * W if pair else None, B, H, W,
+                  m.src_h, m.src_w, m.pad, m.taps, _build.stream_of(src))
+    return (outs if batched else outs[:, 0]).unbind(0)
+
+
 def remap(image: torch.Tensor, rmap: RectifyMap) -> torch.Tensor:
     """Apply the precomputed map to a (H, W) or (B, H, W) uint8 or
     float32 image -> float32 of the map's shape. A CPU tensor takes the
@@ -196,20 +235,19 @@ def remap(image: torch.Tensor, rmap: RectifyMap) -> torch.Tensor:
     if image.device.type == "cpu":
         return remap_plain(image, rmap)
     _check(image, rmap)
-    image = image.contiguous()
-    _build.require_cuda(image, rmap.flat_idx, rmap.wx, rmap.wy)
-    batched = image.ndim == 3
-    B = image.shape[0] if batched else 1
-    H, W = rmap.flat_idx.shape
-    out = torch.empty((B, H, W), dtype=torch.float32, device=image.device)
-    _build.launch("i3dr_remap", "remap", image.device,
-                  image.data_ptr(), int(image.dtype == torch.uint8),
-                  rmap.flat_idx.data_ptr(), rmap.wx.data_ptr(),
-                  rmap.wy.data_ptr(), out.data_ptr(), B, H, W, rmap.src_h,
-                  rmap.src_w, rmap.pad, rmap.taps, _build.stream_of(image))
-    return out if batched else out[0]
+    return _remap_kernel([image], [rmap])[0]
 
 
 def rectify_pair(left: torch.Tensor, right: torch.Tensor, lmap: RectifyMap,
                  rmap: RectifyMap) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`remap` of both cameras of a rig: on the card one launch for
+    both where their images and maps agree in shape, type and taps."""
+    if left.device.type == "cpu" and right.device.type == "cpu":
+        return remap_plain(left, lmap), remap_plain(right, rmap)
+    _check(left, lmap)
+    _check(right, rmap)
+    if (left.shape == right.shape and left.dtype == right.dtype
+            and lmap.flat_idx.shape == rmap.flat_idx.shape
+            and lmap.pad == rmap.pad and lmap.taps == rmap.taps):
+        return _remap_kernel([left, right], [lmap, rmap])
     return remap(left, lmap), remap(right, rmap)

@@ -3,7 +3,7 @@ cloud, crop (torch port of ``i3dr_stereo_tpu.pipeline.stereo_pipeline``).
 
 The rectification maps depend only on the calibration, so they are built
 once per rig (:meth:`StereoPipeline.set_rig` rebuilds them) on the
-pipeline's device, and every frame is one ``remap`` launch per image.
+pipeline's device, and every frame is one ``remap`` launch for both images.
 PyTorch runs eagerly, so the reference's jit cache and device-cached
 scalars have no counterpart: every call runs the current config, and its
 numeric fields (P1/P2, uniqueness, backmatch distance, speckle range)
@@ -36,7 +36,7 @@ from i3dr_stereo_tpu_torch.ops.depth import (
     disparity_to_depth,
     disparity_to_pointcloud,
 )
-from i3dr_stereo_tpu_torch.ops.rectify import make_rectify_map, remap
+from i3dr_stereo_tpu_torch.ops.rectify import make_rectify_map, rectify_pair
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,25 +109,28 @@ class StereoPipeline:
     def _scalar(self, v) -> torch.Tensor:
         return torch.tensor(v, dtype=torch.float32, device=self.device)
 
-    def _rectified(self, image, rmap) -> torch.Tensor:
+    def _remap_input(self, image) -> torch.Tensor:
         x = torch.as_tensor(image, device=self.device)
-        if rmap is None:
-            return to_mono_f32(x)
         # mono uint8 goes into the remap as uint8 (1 byte per source
         # pixel, identical values); colour or float input takes the luma
         # conversion first
         if not (x.dtype == torch.uint8
                 and not (x.ndim == 3 and x.shape[-1] == 3)):
             x = to_mono_f32(x)
-        return remap(x, rmap)
+        return x
 
     def process(self, left, right) -> PipelineResult:
         """(H, W) or (B, H, W) images (mono or BGR, uint8 or float; raw
         when ``rectify_inputs``, else already rectified) ->
         PipelineResult on the pipeline's device."""
         cfg = self.config
-        l = self._rectified(left, self._lmap)
-        r = self._rectified(right, self._rmap)
+        if self._lmap is None:
+            l, r = (to_mono_f32(torch.as_tensor(x, device=self.device))
+                    for x in (left, right))
+        else:
+            l, r = rectify_pair(self._remap_input(left),
+                                self._remap_input(right), self._lmap,
+                                self._rmap)
         res: MatchResult = MATCHER_REGISTRY[cfg.algorithm](
             l, r, cfg, lean=self.lean)
         disp, valid = res.disparity, res.valid

@@ -14,7 +14,7 @@ process of its own, builds its own kernels and prints one JSON line; the
 scene, the level-0 inputs, the timing and the profile window are
 ``chip_smoke.py``'s of this checkout, so only the package differs.
 
-Per ROOT, with the card's name and power limit, in seven sections
+Per ROOT, with the card's name and power limit, in nine sections
 (``--only`` names those to run, comma-separated; all by default):
 
 - ``level0``: level 0 of the flagship pyramid (2448x2048 padded to
@@ -44,12 +44,21 @@ Per ROOT, with the card's name and power limit, in seven sections
   lookup (radius 17, on level 0's right-anchored disparities): ms (median
   of 10), ms a call of its C entry 50 back to back (the wrapper's host
   work outlasts the kernel) and a digest of both outputs;
+- ``census``: the census transform of level 0's two images (the left
+  image and the right one warped by the row gather, 2048x2560, 9x9)
+  through ``census_transform_pair`` (``census_transform`` on each image
+  where the checkout has no pair entry: the plain torch transform before
+  the kernel): ms (median of 10) and a digest of the words;
+- ``remap``: ``rectify_pair`` at 2448x2048 uint8 cubic on
+  ``chip_smoke.py``'s distorted rig: ms (median of 10), ms a call of 20
+  back to back and a digest of both outputs;
 - ``frames``: the flagship frame, the lean flagship frame (raw uint8 ->
   rectify -> pyramid with speckle -> depth, cloud, crop), the SGBM frame
   (``accuracy_bench.py``'s 1280x1024 scene and config) and that frame at
   window 1 through ``lean=True`` (the BT forward pass): ms/frame (median
   of 10), peak memory, ``chip_smoke.py``'s five-frame profile (device
-  busy, idle share, the census kernels', the volume SGM kernels' and the
+  busy, idle share, device activities a frame, the census-cost kernels',
+  the census transform's, the remap's, the volume SGM kernels' and the
   BT forward pass's time a frame) and a digest of the disparity and
   valid mask.
 
@@ -78,13 +87,17 @@ CENSUS_SYMBOLS = ("census_cost_kernel", "census32_kernel", "CensusCost",
 VOLUME_SYMBOLS = ("sgm_volume_kernel", "sgm_volume_sum_kernel")
 # the BT forward pass: its kernel, or a parent's census-or-BT kernel at BT
 BT_SYMBOLS = ("bt_fwd_kernel", "BtCost")
+# the census transform's kernels (a parent without them runs it in plain
+# torch: elementwise kernels no symbol here names)
+TRANSFORM_SYMBOLS = ("census_fixed_kernel", "census_any_kernel")
+REMAP_SYMBOLS = ("remap_kernel",)
 SECTIONS = ("level0", "lean_level0", "sgbm_aggregate", "speckle", "bt_fwd",
-            "row_gather", "frames")
+            "row_gather", "census", "remap", "frames")
 DIGESTS = ("frame_digest", "lean_frame_digest", "sgbm_frame_digest",
            "lean_sgbm1_frame_digest", "level0_digest", "lean_level0_digest",
            "lean_level0_sgm_digest", "sgbm_aggregate_digest",
            "speckle_digest", "bt_fwd_int16_digest", "bt_fwd_float32_digest",
-           "row_gather_digest")
+           "row_gather_digest", "census_digest", "remap_digest")
 
 
 def digest(*tensors) -> str:
@@ -138,6 +151,10 @@ def measure(root: Path, sections) -> dict:
         bt_fwd(out, cs)
     if "row_gather" in sections:
         row_gather(out, cs, cfg, sc)
+    if "census" in sections:
+        census(out, cs, cfg, sc)
+    if "remap" in sections:
+        remap(out, cs)
     if "frames" in sections:
         frames(out, cs, card, root.name)
     return out
@@ -281,6 +298,46 @@ def row_gather(out, cs, cfg, sc):
     torch.cuda.empty_cache()
 
 
+def census(out, cs, cfg, sc):
+    """The census transform of level 0's two images, as the pyramid makes
+    them."""
+    import torch
+    from i3dr_stereo_tpu_torch.ops import block_gather as bg
+    from i3dr_stereo_tpu_torch.ops import census as ce
+
+    _, lp, rp, pred, q, _, _, _ = next(cs.flagship_levels(cfg, sc))
+    rw = bg.block_shift_gather(rp, pred, q, 16)
+    hw = (cfg.census_height, cfg.census_width)
+    pair = getattr(ce, "census_transform_pair", None)
+    call = ((lambda: pair(lp, rw, *hw)) if pair else
+            (lambda: (ce.census_transform(lp, *hw),
+                      ce.census_transform(rw, *hw))))
+    out["census_ms"] = cs.gpu_ms(call)
+    out["census_digest"] = digest(*call())
+    del lp, rp, rw, pred
+    torch.cuda.empty_cache()
+
+
+def remap(out, cs):
+    """Both cameras of the distorted rig through rectify_pair."""
+    import numpy as np
+    import torch
+    from i3dr_stereo_tpu_torch.core import camera
+    from i3dr_stereo_tpu_torch.ops import rectify
+
+    rig = cs.distorted_rig(camera)
+    ml, mr = (rectify.make_rectify_map(c, device=cs.DEVICE)
+              for c in (rig.left, rig.right))
+    rng = np.random.default_rng(5)
+    sl, sr = (torch.tensor(rng.integers(0, 256, (cs.H_FULL, cs.W_FULL),
+                                        dtype=np.uint8), device=cs.DEVICE)
+              for _ in range(2))
+    call = lambda: rectify.rectify_pair(sl, sr, ml, mr)
+    out["remap_pair_ms"] = cs.gpu_ms(call)
+    out["remap_pair_b2b_ms"] = cs.back_to_back_ms(call, iters=20)
+    out["remap_digest"] = digest(*call())
+
+
 def frames(out, cs, card, label):
     """The flagship frame, the lean flagship frame, the SGBM frame and the
     lean window-1 SGBM frame."""
@@ -305,7 +362,10 @@ def frames(out, cs, card, label):
                                 label=f"{label} {name}")
         out[f"{name}_busy_ms"] = prof["busy_ms"]
         out[f"{name}_idle_share"] = prof["idle_share"]
+        out[f"{name}_activities"] = prof["activities"]
         for key, symbols in (("census", CENSUS_SYMBOLS),
+                             ("transform", TRANSFORM_SYMBOLS),
+                             ("remap", REMAP_SYMBOLS),
                              ("volume", VOLUME_SYMBOLS), ("bt", BT_SYMBOLS)):
             out[f"{name}_{key}_kernels_ms"] = sum(
                 ms for k, ms in prof["names_ms"].items()

@@ -18,7 +18,7 @@ from i3dr_stereo_tpu.core.camera import CameraModel, StereoRig
 from i3dr_stereo_tpu.io.synthetic import layered_scene
 from i3dr_stereo_tpu_torch.config import params
 from i3dr_stereo_tpu_torch.convert import config_from_reference, rig_from_reference
-from i3dr_stereo_tpu_torch.ops.rectify import make_rectify_map
+from i3dr_stereo_tpu_torch.ops.rectify import make_rectify_map, remap
 from i3dr_stereo_tpu_torch.pipeline.stereo_pipeline import StereoPipeline
 
 torch.set_num_threads(2)
@@ -138,13 +138,16 @@ def test_set_rig_rebuilds_the_maps(raw):
 
 def test_colour_and_float_inputs_take_the_luma_first(raw):
     pipe = _port_pipeline(speckle_size=0)
+
+    def rectified(image):  # what process() hands rectify_pair, remapped
+        return remap(pipe._remap_input(image), pipe._lmap)
+
     bgr = np.repeat(raw[0][..., None], 3, axis=-1)
-    a = pipe._rectified(bgr, pipe._lmap)
-    b = pipe._rectified(raw[0].astype(np.float32), pipe._lmap)
-    c = pipe._rectified(raw[0], pipe._lmap)
+    a = rectified(bgr)
+    b = rectified(raw[0].astype(np.float32))
+    c = rectified(raw[0])
     lum = (bgr[..., 0].astype(np.float32) * np.float32(0.114)
            + bgr[..., 1].astype(np.float32) * np.float32(0.587)
            + bgr[..., 2].astype(np.float32) * np.float32(0.299))
-    np.testing.assert_array_equal(
-        a.numpy(), pipe._rectified(lum, pipe._lmap).numpy())
+    np.testing.assert_array_equal(a.numpy(), rectified(lum).numpy())
     np.testing.assert_array_equal(b.numpy(), c.numpy())

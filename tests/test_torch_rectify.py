@@ -10,6 +10,7 @@ import torch
 
 from i3dr_stereo_tpu.core.camera import CameraModel as RefCamera
 from i3dr_stereo_tpu.ops import rectify as ref_rectify
+from i3dr_stereo_tpu_torch import _build
 from i3dr_stereo_tpu_torch.core.camera import CameraModel
 from i3dr_stereo_tpu_torch.ops import rectify
 
@@ -48,6 +49,12 @@ def test_map_bit_identical_to_reference(make, interp):
                                   np.asarray(ref.flat_idx))
     np.testing.assert_array_equal(port.wx.numpy(), np.asarray(ref.wx))
     np.testing.assert_array_equal(port.wy.numpy(), np.asarray(ref.wy))
+    # one copy of the weights: a pixel's wx then wy, which wx / wy view
+    assert port.weights.is_contiguous() and tuple(port.weights.shape) == (
+        ref.src_h, ref.src_w, 2 * ref.taps)
+    assert port.wx.data_ptr() == port.weights.data_ptr()
+    assert port.wy.untyped_storage().data_ptr() == \
+        port.weights.untyped_storage().data_ptr()
 
 
 def test_inverse_map_bit_identical_to_reference():
@@ -139,3 +146,61 @@ def test_rectify_pair_and_shape_check():
         rectify.remap(img[:, :300], lm)
     with pytest.raises(ValueError, match="uint8 or float32"):
         rectify.remap(img.double(), lm)
+
+
+def _outside_xy():
+    """A 320x240 map whose coordinates leave the image on every side."""
+    mx, my = np.meshgrid(np.arange(320, dtype=np.float64),
+                         np.arange(240, dtype=np.float64))
+    return mx * 1.25 - 37.6, my * 1.2 - 21.3
+
+
+@pytest.mark.parametrize("interp", ["cubic", "linear"])
+@pytest.mark.parametrize("dtype", ["float32", "uint8"])
+@pytest.mark.parametrize("batch", [None, 2])
+def test_rectify_pair_equals_reference_gather(interp, dtype, batch):
+    """Both cameras through rectify_pair over the interleaved map: the
+    distorted camera, and a map whose coordinates fall outside the image
+    (the stencil clamped to the replicated border)."""
+    shape = (240, 320) if batch is None else (batch, 240, 320)
+    left, right = _image(shape, 8, dtype), _image(shape, 9, dtype)
+    maps, ref_maps = [], []
+    for xy in (None, _outside_xy()):
+        maps.append(rectify.make_rectify_map(
+            _distorted(CameraModel), interpolation=interp, map_xy=xy,
+            device="cpu"))
+        ref_maps.append(ref_rectify.make_rectify_map(
+            _distorted(RefCamera), interpolation=interp, map_xy=xy,
+            banded=False))
+    got = rectify.rectify_pair(torch.from_numpy(left), torch.from_numpy(right),
+                               *maps)
+    for g, img, m, rm in zip(got, (left, right), maps, ref_maps):
+        assert g.dtype == torch.float32 and tuple(g.shape) == shape
+        np.testing.assert_array_equal(g.numpy(), _gather_numpy(img, m))
+        np.testing.assert_array_equal(
+            g.numpy(), rectify.remap(torch.from_numpy(img), m).numpy())
+        np.testing.assert_allclose(
+            g.numpy(), np.asarray(ref_rectify._remap_gather_impl(
+                jnp.asarray(img), rm)), rtol=0, atol=REF_ATOL)
+
+
+def test_remap_cpu_never_reaches_the_kernels(monkeypatch):
+    def no_library():
+        raise AssertionError("a CPU call reached the kernel library")
+
+    monkeypatch.setattr(_build, "library", no_library)
+    before = dict(_build.LAUNCHES)
+    m = rectify.make_rectify_map(_ideal(CameraModel), device="cpu")
+    img = torch.from_numpy(_image((72, 96), seed=4, dtype="uint8"))
+    a, b = rectify.rectify_pair(img, img, m, m)
+    assert torch.equal(a, rectify.remap(img, m)) and torch.equal(a, b)
+    assert _build.LAUNCHES == before
+
+
+def test_rectify_pair_kernel_path_raises_off_the_card():
+    m = rectify.make_rectify_map(_ideal(CameraModel), device="meta")
+    img = torch.zeros((72, 96), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        rectify.rectify_pair(img, img, m, m)
+    with pytest.raises(ValueError, match="CUDA"):
+        rectify.rectify_pair(torch.zeros((72, 96)), img, m, m)
