@@ -126,7 +126,33 @@ final result line) on the first thing that is wrong:
     -> ``fused_census_sgm`` (D = 256, 4 paths, int16 mode) -> WTA ->
     min C < 255 -> LR check 1.5 -> speckle 100 / 0.5 at downsample 2:
     finite, density, error against ground truth and peak memory
-    reported.
+    reported;
+13. runs the post-match kernels against their twins: ``gauss_rays`` (the
+    32-direction Gauss fill) on level 0's disparities and valid mask of
+    the flagship frame (its own holes, timed) and at 9 more shapes
+    (B = 2, ragged, min_elements 5 and 32, 16 directions at radius 16,
+    weights that underflow, radius 200 and 2, all holes, no hole): masks
+    bit-equal, values within 1e-6 relative (exp); ``wls_lines`` (the WLS
+    line solve) for the horizontal and the vertical pass at 2448x2048
+    and 1280x1024 on that frame's guide, data and mask: bit-equal, each
+    timed; one line alone of 2448 and of 2048 (the chain); the whole
+    WLS fill (6 launches) timed;
+14. drives the ``I3DRSGM`` facade (``matchers/i3drsgm.py``) on the
+    flagship scene (rectified float32 images) with ``quick_profile()``
+    and ``subpix_profile()``: every kernel of its path must launch
+    during one frame, the accuracy gate, ms/frame, peak memory, the
+    5-frame profile, ``backward_match`` once, and the kernels against
+    the twins (``enableCPU(True)``) at 256x320. ``subpix_profile()``
+    as shipped has a top prediction shift of +8 at level 5 (+256 px at
+    full resolution), above every disparity of this scene: it runs once
+    as shipped (density and error reported, not gated), then gated with
+    ``setMinDisparity(0)`` (the coarsest shift for this scene);
+15. drives the flagship frame through ``StereoPipeline`` with
+    ``interp=True`` (the WLS fill at level 0), ``occlusion_detection``
+    and ``occlusion_interp``: ``wls_lines`` must launch, the gates,
+    timings, peak, profile and the twins at 256x320; then with
+    ``interpolate_missing=True`` alone (``gauss_rays`` must launch); then
+    the SGBM frame of 8 with ``interp=True`` (``wls_fill_lr``) once.
 
 Each kernel's entry also carries its bound (the least time the card could
 take: bytes moved once over 3.35 TB/s, or operations over 67 TFLOP/s with
@@ -156,6 +182,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -193,6 +220,12 @@ SOURCES = {
                          "i3dr_stereo_tpu/ops/fused_cost_sgm.py:201"),
     "fused_bt_fwd": ("i3dr_stereo_tpu_torch/csrc/fused_bt.cu",
                      "i3dr_stereo_tpu/ops/fused_cost_sgm.py:348"),
+    # the reference computes these two in XLA, no pallas_call: unrolled
+    # doubling rounds and a lax.scan
+    "gauss_rays": ("i3dr_stereo_tpu_torch/csrc/gauss_rays.cu",
+                   "i3dr_stereo_tpu/ops/gauss_interp.py:38"),
+    "wls_lines": ("i3dr_stereo_tpu_torch/csrc/wls_lines.cu",
+                  "i3dr_stereo_tpu/ops/wls.py:32"),
 }
 # the kernels of each main path: the flagship frame, the SGBM frame
 FLAGSHIP_KERNELS = ("census_transform", "census_cost", "sgm_sweep",
@@ -215,7 +248,8 @@ KERNEL_SYMBOLS = ("census_cost_kernel", "sgm_sweep_kernel",
                   "ccl_boundary", "ccl_count", "ccl_keep",
                   "sgm_volume_kernel",
                   "census_fwd_kernel", "census32_kernel", "bt_fwd_kernel",
-                  "census_fixed_kernel", "census_any_kernel")
+                  "census_fixed_kernel", "census_any_kernel",
+                  "gauss_rays_kernel", "wls_lines_kernel")
 # accuracy_bench.py:sgbm_1280's scene and size
 H_SGBM, W_SGBM = 1024, 1280
 SGBM_SCENE = dict(max_disp=120, background_disp=8, layers=5, seed=21)
@@ -305,6 +339,8 @@ def set_bound(stats, name: str, nbytes: float, nops: float,
     stats[name]["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
     stats[name]["bound_bytes"] = int(nbytes)
     stats[name]["bound_bytes_ms"] = t_bytes
+    stats[name]["bound_ops"] = int(nops)
+    stats[name]["bound_ops_ms"] = t_ops
     stats[name]["bound_popcounts"] = int(npopc)
 
 
@@ -1944,6 +1980,319 @@ def phase_direct(card):
           f"(one call), peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
 
+# ---------------------------------------------------------------------------
+# phase 13: the post-match kernels against their plain twins
+# ---------------------------------------------------------------------------
+
+def gauss_ops(gi, n_holes, n_directions=32, max_radius=64) -> int:
+    """The doubling's operations where this input needs them: in its holes
+    alone (a valid pixel's state (d, 0) is never replaced, so it needs no
+    work). A round that moves is a shifted read of two planes (two
+    selects), an add, a compare and two selects; a direction adds ~12
+    (initial state, hit, weight, three sums)."""
+    moving = sum(1 for dirs in gi.ray_offsets(n_directions, max_radius)
+                 for o in dirs if o != (0, 0))
+    return n_holes * (6 * moving + 12 * n_directions)
+
+
+def phase_postmatch(stats, card):
+    """``gauss_rays`` and ``wls_lines`` against their twins: the Gauss fill
+    on level 0's disparities and valid mask of the flagship frame (its own
+    holes), masks bit-equal (the ray counts decide them: min_elements 1, 5
+    and 32 below) and values bit-equal or within 1e-6 relative (exp), then
+    ragged and edge cases; the line solve of both WLS passes at 2448x2048
+    and 1280x1024 on that frame's guide, data and mask, bit-equal, one
+    line alone for the chain's latency, and the whole WLS fill."""
+    from i3dr_stereo_tpu_torch.config import params
+    from i3dr_stereo_tpu_torch.io.synthetic import layered_scene
+    from i3dr_stereo_tpu_torch.matchers.pyramid import pyramid_sgm_match
+    from i3dr_stereo_tpu_torch.ops import gauss_interp as gi
+    from i3dr_stereo_tpu_torch.ops import wls
+
+    dev = torch.device(DEVICE)
+    cfg = flagship_cfg(params)
+    sc = layered_scene(H_FULL, W_FULL, **SCENE)
+    l = torch.tensor(sc.left, device=dev)[None]
+    r = torch.tensor(sc.right, device=dev)[None]
+    res = pyramid_sgm_match(l, r, cfg)
+    d, v = res.disparity.contiguous(), res.valid.contiguous()
+    holes = int((~v).sum())
+
+    def compare_gauss(d, v, label, **kw):
+        k = gi.gauss_interpolate(d, v, **kw)
+        p = gi.gauss_interpolate(d, v, plain=True, **kw)
+        torch.cuda.synchronize()
+        check(torch.equal(k[1], p[1]), f"gauss_rays {label}: the valid "
+              f"mask differs from the twin")
+        diff = (k[0] - p[0]).abs()
+        rel = (diff / p[0].abs().clamp(min=1e-30)).max().item()
+        check(bool(torch.isfinite(k[0]).all()),
+              f"gauss_rays {label}: non-finite values")
+        check(rel <= 1e-6, f"gauss_rays {label}: values {rel} relative "
+              f"from the twin")
+        stats["gauss_rays"]["err"] = max(stats["gauss_rays"]["err"],
+                                         diff.max().item())
+        return k, int((diff > 0).sum())
+
+    st = stats["gauss_rays"]
+    (out, nv), n_diff = compare_gauss(d, v, "level 0")
+    st["ms"] = gpu_ms(lambda: gi.gauss_interpolate(d, v))
+    st["back_to_back_ms"] = back_to_back_ms(
+        lambda: gi.gauss_interpolate(d, v), iters=10)
+    st["plain_ms"] = gpu_ms(lambda: gi.gauss_interpolate(d, v, plain=True),
+                            iters=1, warmup=0)
+    # disparity and mask in, values and mask out; the doubling's operations
+    # in the holes
+    set_bound(stats, "gauss_rays", 10 * d.numel(), gauss_ops(gi, holes))
+    print(f"gauss_rays level 0 ({W_FULL}x{H_FULL}, {holes} holes, 32 "
+          f"directions, radius 64) [{card}]: masks bit-equal, "
+          f"{n_diff} values differ from the twin (max "
+          f"{st['err']:.3g} px); {st['ms']:.4f} ms by events around one "
+          f"call, {st['back_to_back_ms']:.4f} ms a call back to back "
+          f"(bound {st['bound_ms']:.4f} ms by {st['bound_by']}; the "
+          f"doubling's {st['bound_ops']} operations in the holes "
+          f"{st['bound_ops_ms']:.4f} ms; plain "
+          f"{st['plain_ms']:.2f} ms; no PyTorch call computes it); "
+          f"density {v.float().mean().item():.4f} -> "
+          f"{nv.float().mean().item():.4f}", flush=True)
+    rng = np.random.default_rng(13)
+    n_cases = 0
+    for (B, H, W), hole, kw in (
+            ((2, 45, 131), 0.6, {}), ((1, 64, 96), 0.5, dict(min_elements=5)),
+            ((1, 64, 96), 0.5, dict(min_elements=32)),
+            ((1, 40, 50), 0.9, dict(n_directions=16, max_radius=40)),
+            ((1, 33, 70), 0.7, dict(sigma=0.05)),
+            ((1, 48, 300), 0.97, dict(max_radius=33)),
+            ((1, 20, 24), 0.5, dict(n_directions=8)),
+            ((1, 16, 16), 1.0, {}), ((1, 16, 16), 0.0, {})):
+        dd = torch.tensor(rng.uniform(0, 60, (B, H, W)), dtype=torch.float32,
+                          device=dev)
+        vv = torch.tensor(rng.random((B, H, W)) >= hole, device=dev)
+        compare_gauss(dd, vv, f"{B}x{H}x{W} holes {hole} {kw}", **kw)
+        n_cases += 1
+    one = gi.gauss_interpolate(d[0], v[0])
+    check(torch.equal(one[0], out[0]) and torch.equal(one[1], nv[0]),
+          "gauss_rays: an (H, W) frame differs from the batch")
+    # the kernel is built for 6 rounds alone: another radius raises
+    for radius in (32, 65):
+        try:
+            gi.gauss_interpolate(d, v, max_radius=radius)
+            check(False, f"gauss_rays: max_radius {radius} did not raise")
+        except ValueError:
+            pass
+    print(f"gauss_rays at {n_cases} more shapes (B = 2, ragged, "
+          f"min_elements 5 and 32, 16 directions radius 40, weights that "
+          f"underflow, radius 33, 8 directions, all holes, no hole): masks "
+          f"bit-equal, values within 1e-6 relative; max_radius 32 and 65 "
+          f"raise", flush=True)
+
+    st = stats["wls_lines"]
+    lam = 1.5 * 8000.0 * 4.0 ** 2 / (4.0 ** 3 - 1.0)    # the first pass's
+    for H, W in ((H_FULL, W_FULL), (H_SGBM, W_SGBM)):
+        if H == H_FULL:
+            g, dd, a = l, d, v.float()
+        else:
+            g, dd, a = (torch.nn.functional.interpolate(x[None], size=(H, W))
+                        [0].contiguous() for x in (l, d, v.float()))
+        gn = wls.div_const(g, 255.0)
+        for vertical in (False, True):
+            w = wls._edge_weights(gn, 0.15, -2 if vertical else -1)
+            w = w.contiguous()
+            k = wls.thomas_lines(a, w, dd, lam, vertical=vertical)
+            p = wls.thomas_lines(a, w, dd, lam, vertical=vertical, plain=True)
+            torch.cuda.synchronize()
+            label = (f"wls_lines {'vertical' if vertical else 'horizontal'} "
+                     f"{W}x{H}")
+            check(bool(torch.isfinite(k).all()), f"{label}: non-finite")
+            check(torch.equal(k, p), f"{label}: differs from the twin (max "
+                  f"{(k - p).abs().max().item()})")
+            ms = gpu_ms(lambda: wls.thomas_lines(a, w, dd, lam,
+                                                 vertical=vertical))
+            b2b = back_to_back_ms(lambda: wls.thomas_lines(
+                a, w, dd, lam, vertical=vertical), iters=10)
+            plain_ms = gpu_ms(lambda: wls.thomas_lines(
+                a, w, dd, lam, vertical=vertical, plain=True), iters=1,
+                warmup=0)
+            n = dd.numel()
+            print(f"{label} [{card}]: bit-equal, {ms:.4f} ms by events "
+                  f"around one call, {b2b:.4f} ms back to back (bytes bound "
+                  f"{16 * n / PEAK_BYTES_S * 1e3:.4f} ms), plain "
+                  f"{plain_ms:.1f} ms", flush=True)
+            if H == H_FULL and not vertical:
+                st["ms"], st["back_to_back_ms"] = ms, b2b
+                st["plain_ms"] = plain_ms
+                # a, w, d in and u out once; ~12 float ops an element
+                set_bound(stats, "wls_lines", 16 * n, 12 * n)
+            elif H == H_FULL:
+                st["vertical_ms"], st["vertical_back_to_back_ms"] = ms, b2b
+                st["vertical_plain_ms"] = plain_ms
+    # the chain: one line alone, a thread, N dependent steps
+    for N in (W_FULL, H_FULL):
+        one_a = torch.rand((1, 1, N), device=dev)
+        one_w = torch.rand((1, 1, N - 1), device=dev)
+        ms = gpu_ms(lambda: wls.thomas_lines(one_a, one_w, one_a, lam))
+        st[f"chain_{N}_ms"] = ms
+        print(f"wls_lines one line of {N} [{card}]: {ms:.4f} ms by events "
+              f"({ms / N * 1e6:.1f} ns a step, the chain bound of a pass "
+              f"of {N})", flush=True)
+    fill_ms = gpu_ms(lambda: wls.wls_fill(d, v, l))
+    fd, fv = wls.wls_fill(d, v, l)
+    check(bool(torch.isfinite(fd).all() and fv.all()),
+          "wls_fill at level 0: non-finite values")
+    st["wls_fill_ms"] = fill_ms
+    print(f"wls_fill (6 wls_lines launches) at {W_FULL}x{H_FULL} [{card}]: "
+          f"{fill_ms:.3f} ms by events", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the I3DRSGM facade at its shipped profiles
+# ---------------------------------------------------------------------------
+
+FACADE_KERNELS = ("census_transform", "census_cost", "sgm_sweep",
+                  "sgm_sweep_wta", "row_gather", "speckle_ccl", "gauss_rays")
+
+
+def phase_facade(stats, card):
+    """``I3DRSGM(device="cuda").match`` on the flagship scene (rectified
+    float32 images) with ``quick_profile()`` and ``subpix_profile()``:
+    every kernel of the path launches, the accuracy gate, ms/frame, the
+    profile window, peak memory, ``backward_match`` once; the kernels
+    against the twins (``enableCPU(True)``) at 256x320."""
+    from i3dr_stereo_tpu_torch import _build
+    from i3dr_stereo_tpu_torch.config.profile import (quick_profile,
+                                                      subpix_profile)
+    from i3dr_stereo_tpu_torch.io.synthetic import layered_scene
+    from i3dr_stereo_tpu_torch.matchers.i3drsgm import I3DRSGM
+
+    sc = layered_scene(H_FULL, W_FULL, **SCENE)
+    l = torch.tensor(sc.left, device=DEVICE)
+    r = torch.tensor(sc.right, device=DEVICE)
+    small = layered_scene(256, 320, max_disp=40, seed=2)
+    ls = torch.tensor(small.left, device=DEVICE)
+    rs = torch.tensor(small.right, device=DEVICE)
+
+    def accuracy(res, label):
+        dd, vv = res.disparity.cpu().numpy(), res.valid.cpu().numpy()
+        check(dd.shape == (H_FULL, W_FULL) and bool(np.isfinite(dd[vv]).all()),
+              f"{label}: disparities not finite at full shape")
+        both = vv & sc.valid
+        return float(vv.mean()), float(np.median(np.abs(dd - sc.disparity)
+                                                 [both]))
+
+    for name, make in (("quick", quick_profile), ("subpix", subpix_profile)):
+        label = f"facade {name}_profile"
+        facade = I3DRSGM(profile=make(), device=DEVICE)
+        if name == "subpix":
+            # as shipped: a top prediction shift of +8 at level 5 (+256 px
+            # at full resolution), above every disparity of this scene
+            # (16-200 px); reported, not gated
+            density, med = accuracy(facade.match(l, r), label)
+            print(f"{label} as shipped (top shift +8) at {W_FULL}x{H_FULL}: "
+                  f"density {density:.4f}, median |d - GT| {med:.4f} px "
+                  f"(the search window misses the scene; not gated)",
+                  flush=True)
+            # the coarsest shift set for the scene with the wrapper's own
+            # setter: min disparity 0 -> top prediction shift 0
+            facade.setMinDisparity(0.0)
+            label += " with setMinDisparity(0)"
+        torch.cuda.reset_peak_memory_stats()
+        facade.match(l, r)
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        res = facade.match(l, r)
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+        print(f"{label} launches at {W_FULL}x{H_FULL}: {launches}",
+              flush=True)
+        for k in FACADE_KERNELS:
+            check(launches[k] > 0, f"kernel {k} did not launch on the "
+                  f"{label} frame")
+        if name == "quick":
+            stats["gauss_rays"]["launches"] = launches["gauss_rays"]
+        density, med = accuracy(res, label)
+        print(f"{label} accuracy: density {density:.4f}, median |d - GT| "
+              f"{med:.4f} px", flush=True)
+        check(density > 0.5, f"{label}: density {density} too low")
+        check(med < MAX_MEDIAN_ERR, f"{label}: median error {med}")
+        frame_ms = gpu_ms(lambda: facade.match(l, r), iters=10, warmup=1)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"timing [{card}]: {label} (rectified float32 in, "
+              f"{len(facade.profile.enabled_levels)} passes) {frame_ms:.3f} "
+              f"ms/frame ({1000 / frame_ms:.2f} FPS), peak device memory "
+              f"{peak:.2f} GiB at {W_FULL}x{H_FULL}", flush=True)
+        # phase_profile drives ``process``: one facade match a frame
+        phase_profile(SimpleNamespace(process=facade.match), l, r, card,
+                      label=label)
+        bwd = facade.backward_match(l, r)
+        torch.cuda.synchronize()
+        bd = bwd.disparity[bwd.valid]
+        check(tuple(bwd.disparity.shape) == (H_FULL, W_FULL)
+              and bool(torch.isfinite(bd).all()) and bwd.valid.any(),
+              f"{label}: backward_match not finite")
+        print(f"{label} backward_match: finite, density "
+              f"{bwd.valid.float().mean().item():.4f}", flush=True)
+        twin = I3DRSGM(profile=facade.profile, device=DEVICE)
+        twin.enableCPU(True)
+        check_twins(facade.match(ls, rs), twin.match(ls, rs), label)
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the flagship frame with hole filling and occlusion handling
+# ---------------------------------------------------------------------------
+
+def phase_interp(stats, card):
+    """``StereoPipeline`` at the flagship config with ``interp`` (the WLS
+    fill at level 0), occlusion detection and fill; then with
+    ``interpolate_missing`` alone (the Gauss fill through the flat
+    config); SGBM at 1280x1024x128 with ``interp`` (``wls_fill_lr``)
+    once. The first is also held against the twins at 256x320."""
+    from i3dr_stereo_tpu_torch.io.synthetic import layered_scene
+    from i3dr_stereo_tpu_torch.matchers.pyramid import pyramid_sgm_match
+
+    pipe, left, right, sc, cfg, _ = flagship_pipe()
+    pipe.update_config(interp=True, occlusion_detection=True,
+                       occlusion_interp=True)
+    label = "flagship frame with interp + occlusion"
+    torch.cuda.reset_peak_memory_stats()
+    drive_frame(pipe, left, right, sc, FLAGSHIP_KERNELS + ("wls_lines",),
+                label, stats, record=("wls_lines",))
+    frame_ms = gpu_ms(lambda: pipe.process(left, right), iters=10, warmup=1)
+    print(f"timing [{card}]: {label} {frame_ms:.3f} ms/frame "
+          f"({1000 / frame_ms:.2f} FPS), peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB at "
+          f"{W_FULL}x{H_FULL}", flush=True)
+    phase_profile(pipe, left, right, card, label=label)
+    small = layered_scene(256, 320, max_disp=40, seed=2)
+    ls = torch.tensor(small.left, device=DEVICE)
+    rs = torch.tensor(small.right, device=DEVICE)
+    check_twins(pyramid_sgm_match(ls, rs, pipe.config),
+                pyramid_sgm_match(ls, rs, pipe.config, plain=True), label)
+
+    pipe.update_config(interp=False, occlusion_detection=False,
+                       occlusion_interp=False, interpolate_missing=True)
+    label = "flagship frame with interpolate_missing (Gauss)"
+    torch.cuda.reset_peak_memory_stats()
+    drive_frame(pipe, left, right, sc, FLAGSHIP_KERNELS + ("gauss_rays",),
+                label, stats)
+    frame_ms = gpu_ms(lambda: pipe.process(left, right), iters=10, warmup=1)
+    print(f"timing [{card}]: {label} {frame_ms:.3f} ms/frame, peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+          flush=True)
+    phase_profile(pipe, left, right, card, label=label)
+    del pipe
+
+    spipe, sl, sr, ssc, scfg, _ = sgbm_pipe()
+    spipe.update_config(interp=True)
+    label = "SGBM frame with interp (wls_fill_lr)"
+    torch.cuda.reset_peak_memory_stats()
+    drive_frame(spipe, sl, sr, ssc, SGBM_KERNELS + ("wls_lines",), label,
+                stats)
+    ms = gpu_ms(lambda: spipe.process(sl, sr), iters=3, warmup=0)
+    print(f"timing [{card}]: {label} {ms:.3f} ms/frame, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB at "
+          f"{W_SGBM}x{H_SGBM}", flush=True)
+
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1985,6 +2334,9 @@ def main() -> int:
         phase_profile(pipe, left, right, card,
                       label=f"SGBM window-1 {name}")
     phase_direct(card)
+    phase_postmatch(stats, card)
+    phase_facade(stats, card)
+    phase_interp(stats, card)
     print(f"whole run {time.perf_counter() - t_start:.1f} s", flush=True)
 
     for k, st in stats.items():
@@ -1997,6 +2349,7 @@ def main() -> int:
                 "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                 "bound_by": s["bound_by"], "bound_bytes": s["bound_bytes"],
                 "bound_bytes_ms": s["bound_bytes_ms"],
+                "bound_ops": s["bound_ops"],
                 "bound_popcounts": s["bound_popcounts"],
                 "library_ms": s["library_ms"],
                 **{x: s[x] for x in s if x.endswith("_ms")}}

@@ -11,5 +11,9 @@ twin, a CUDA tensor launches the kernel or raises.
 Ported so far: the flagship frame — ``pipeline.stereo_pipeline.
 StereoPipeline`` with ``Algorithm.I3DRSGM``: bicubic rectification of raw
 images, the coarse-to-fine pyramid census SGM with the exact speckle
-filter, depth, point cloud and crop (ROADMAP.md lists what comes next).
+filter, depth, point cloud and crop; the dense matchers (SGBM, BM, dense
+I3DRSGM); the engine's post-match stages (half-pel pass, occlusion
+handling, Gauss and WLS hole filling) and its facade,
+``matchers.i3drsgm.I3DRSGM``, with the ``.param`` profiles
+(ROADMAP.md lists what comes next).
 """

@@ -38,9 +38,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # kernel name -> launches since the last reset_launches()
 LAUNCHES = {"census_cost": 0, "sgm_sweep": 0, "sgm_sweep_wta": 0,
             "row_gather": 0, "remap": 0, "speckle_ccl": 0, "sgm_volume": 0,
-            "fused_census_fwd": 0, "fused_bt_fwd": 0, "census_transform": 0}
+            "fused_census_fwd": 0, "fused_bt_fwd": 0, "census_transform": 0,
+            "gauss_rays": 0, "wls_lines": 0}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 # C entry -> argtypes (pointers and the stream as c_void_p: a bare Python
 # int would be passed as a 32-bit int and cut)
 _SIGNATURES = {
@@ -74,6 +76,14 @@ _SIGNATURES = {
     # left, right, base, th, C, S, s_i16, B, H, W, D, min_disp, p1, p2, stream
     "i3dr_fused_bt_fwd": (_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                           _F, _P),
+    # d, v, table, out, vout, B, H, W, n_dir, rounds, radius,
+    # inv_two_sig2, min_rays, stream
+    "i3dr_gauss_rays": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F,
+                        _P),
+    # a, w, d, u, cp, B, L, N, plane, line, step, wplane, wline, wstep,
+    # lam, stream
+    "i3dr_wls_lines": (_P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _L, _L, _L, _L,
+                       _F, _P),
     # out (uint32, blocks * 256), blocks, iters, stream: the popcount-rate
     # probe (blocks * 256 * iters * 8 popcounts); no kernel of any path
     "i3dr_popc_probe": (_P, _I, _I, _P),

@@ -2,7 +2,8 @@
 
 The port keeps its own copies of the framework-free config and camera
 classes (importing any ``i3dr_stereo_tpu`` module imports JAX). These
-helpers turn the reference package's objects into the port's by reading
+helpers turn the reference package's objects (matcher config, pyramid
+profile, rig) into the port's by reading
 plain attributes and numpy arrays — duck-typed, so this module imports
 nothing of the JAX package — letting both sides compute from identical
 state.
@@ -19,6 +20,7 @@ from i3dr_stereo_tpu_torch.config.params import (
     CostFunction,
     MatcherConfig,
 )
+from i3dr_stereo_tpu_torch.config.profile import PyramidLevelConfig, SGMProfile
 from i3dr_stereo_tpu_torch.core.camera import CameraModel, StereoRig
 
 
@@ -33,6 +35,18 @@ def config_from_reference(cfg) -> MatcherConfig:
             v = CostFunction(v.value)
         kw[f.name] = v
     return MatcherConfig(**kw)
+
+
+def profile_from_reference(profile) -> SGMProfile:
+    """The port's SGMProfile with every field of the reference ``profile``
+    and of each of its levels."""
+    levels = tuple(
+        PyramidLevelConfig(**{f.name: getattr(lv, f.name)
+                              for f in dataclasses.fields(PyramidLevelConfig)})
+        for lv in profile.levels)
+    kw = {f.name: getattr(profile, f.name)
+          for f in dataclasses.fields(SGMProfile) if f.name != "levels"}
+    return SGMProfile(levels=levels, **kw)
 
 
 def _camera_from_reference(cam) -> CameraModel:

@@ -21,11 +21,21 @@ level searches from the configured minimum disparity. Per level:
    updated in place, the WTA inside the last sweep);
 4. true backmatching against the right-anchored WTA of the same cost
    volume, looked up with ``block_shift_gather``;
-5. where the level has it (level 0 under :func:`profile_from_config`),
-   the speckle filter at ``cfg.speckle_downsample`` (``speckle_filter``,
-   the ``speckle_ccl`` kernel);
-6. masked 3x3 median; between levels, invalid pixels take the local
-   median.
+5. where the level has it (level 0 under :func:`profile_from_config`,
+   every level of the engine's profiles), the speckle filter at
+   ``cfg.speckle_downsample`` (``speckle_filter``, the ``speckle_ccl``
+   kernel);
+6. where the level has it, occlusion detection
+   (:mod:`~i3dr_stereo_tpu_torch.ops.occlusion`), then the occluded
+   pixels filled from the background side or dropped from ``valid``;
+7. masked 3x3 median; between levels, invalid pixels take the local
+   median; at level 0 with ``interpolate_gaps``, the level's hole filler
+   (:func:`_fill_gaps`: the 32-direction Gauss fill, kernel
+   ``gauss_rays``, or the WLS fill, kernel ``wls_lines``).
+
+A profile's ``... Subpix`` passes refine the current estimate at half-pel
+steps (:func:`~i3dr_stereo_tpu_torch.ops.subpix.halfpel_refine`), after
+a 2x upsample when the level changed.
 
 A lean level (:func:`_match_level_lean`) replaces 1-4: edge-pad to
 multiples of 8, warp the right image by the whole prediction with a
@@ -34,10 +44,6 @@ both; ``fused_census_sgm`` (kernel ``fused_census_fwd``, then
 ``sgm_volume`` over the uint8 volume, folded into its int16 plane); plain WTA
 on the int32 sums; and backmatching by a forward splat of the absolute
 map (:func:`_roundtrip_check`).
-
-Not ported yet, and raising ``NotImplementedError`` rather than skipping:
-half-pel subpix passes, occlusion handling and hole filling (ROADMAP.md
-Queue 1 item 2).
 """
 
 from __future__ import annotations
@@ -58,13 +64,18 @@ from i3dr_stereo_tpu_torch.ops.block_gather import (
 )
 from i3dr_stereo_tpu_torch.ops.census import census_transform_pair
 from i3dr_stereo_tpu_torch.ops.fused_cost_sgm import fused_census_sgm
+from i3dr_stereo_tpu_torch.ops.gauss_interp import gauss_interpolate
 from i3dr_stereo_tpu_torch.ops.median import median3x3, median3x3_masked
+from i3dr_stereo_tpu_torch.ops.occlusion import (detect_occlusions,
+                                                 fill_occlusions)
 from i3dr_stereo_tpu_torch.ops.sgm import DIRECTIONS_4, DIRECTIONS_8
 from i3dr_stereo_tpu_torch.ops.sgm_fused_t import (
     census_sgm_wta,
     right_disparity_from_C,
 )
 from i3dr_stereo_tpu_torch.ops.speckle import speckle_filter
+from i3dr_stereo_tpu_torch.ops.subpix import halfpel_refine
+from i3dr_stereo_tpu_torch.ops.wls import wls_fill
 from i3dr_stereo_tpu_torch.ops.wta import wta_disparity
 
 
@@ -131,22 +142,6 @@ def profile_from_config(cfg: MatcherConfig) -> SGMProfile:
     return SGMProfile(name="from_config", levels=tuple(levels))
 
 
-def _reject_unported(passes) -> None:
-    for p in passes:
-        if p.subpix_pass:
-            raise NotImplementedError(
-                "half-pel subpix passes are not ported yet "
-                "(ROADMAP.md Queue 1 item 2)")
-        if p.occlusion_detection:
-            raise NotImplementedError(
-                "occlusion detection is not ported yet "
-                "(ROADMAP.md Queue 1 item 2)")
-        if p.level == 0 and p.interpolate_gaps:
-            raise NotImplementedError(
-                "hole filling (interp / interpolate_missing) is not ported "
-                "yet (ROADMAP.md Queue 1 item 2)")
-
-
 def pyramid_sgm_match(left, right, cfg: MatcherConfig,
                       profile: Optional[SGMProfile] = None, *,
                       lean: bool = False,
@@ -173,9 +168,6 @@ def pyramid_sgm_match(left, right, cfg: MatcherConfig,
     max_by_size = max(0, min(H, W).bit_length() - 6)
     passes = [dataclasses.replace(p, level=min(p.level, max_by_size))
               for p in passes]
-    # after the clamp: which level is the finest (and would fill its gaps)
-    # is decided on the clamped levels, as in the reference
-    _reject_unported(passes)
     deepest = max(p.level for p in passes)
 
     pyr_l, pyr_r = [l], [r]
@@ -189,6 +181,17 @@ def pyramid_sgm_match(left, right, cfg: MatcherConfig,
     for p in passes:
         ll, rr = pyr_l[p.level], pyr_r[p.level]
         Bh, Hh, Wh = ll.shape
+        if p.subpix_pass:
+            if disp is None:
+                continue
+            if cur_level != p.level:
+                disp = _upsample2_disp(disp, Hh, Wh)
+                cur_level = p.level
+                valid = None
+            disp = halfpel_refine(ll, rr, disp,
+                                  torch.ones_like(disp, dtype=torch.bool),
+                                  step_size=p.step_size)
+            continue
         K = max(8, p.num_disparities + 1)  # odd profile count -> even window
         pens = tuple((p.p1[min(i, 3)], p.p2[min(i, 3)])
                      for i in range(n_dirs))
@@ -232,10 +235,18 @@ def pyramid_sgm_match(left, right, cfg: MatcherConfig,
                                    max_diff=p.speckle_max_diff,
                                    downsample=cfg.speckle_downsample,
                                    plain=plain)
+        if p.occlusion_detection:
+            occ = detect_occlusions(disp, valid)
+            if p.interpolate_occlusions:
+                disp, valid = fill_occlusions(disp, valid, occ)
+            else:
+                valid = valid & ~occ
         if p.median:
             disp = median3x3_masked(disp, valid)
         if p.level != 0:
             disp = torch.where(valid, disp, median3x3(disp))
+        elif p.interpolate_gaps:
+            disp, valid = _fill_gaps(p, disp, valid, ll, plain=plain)
 
     # bring the estimate to full resolution if the finest enabled level
     # was coarser than 0
@@ -246,8 +257,22 @@ def pyramid_sgm_match(left, right, cfg: MatcherConfig,
         cur_level -= 1
 
     if not batched:
-        disp, valid = disp[0], valid[0]
+        # valid is None where a subpix pass changed the level last, as in
+        # the reference
+        disp, valid = disp[0], None if valid is None else valid[0]
     return MatchResult(disparity=disp, valid=valid)
+
+
+def _fill_gaps(p: PyramidLevelConfig, disp, valid, ll, *, plain: bool):
+    """Hole filling by the level's "Interpolator Mode": the engine's
+    32-direction Gauss interpolator (quick.param:111-117) or the WLS
+    diffusion of the flat config's ``interp``."""
+    if p.interpolator_mode == "gauss":
+        return gauss_interpolate(disp, valid,
+                                 n_directions=p.interp_directions,
+                                 min_elements=p.interp_min_elements,
+                                 plain=plain)
+    return wls_fill(disp, valid, ll, plain=plain)
 
 
 def _ceil_to(v: int, m: int) -> int:

@@ -20,9 +20,11 @@ keyword here, ``lean`` (default False), on every backend and on
 computes under ``I3DR_SGM_BACKEND=pallas`` — the fused cost + SGM path of
 :mod:`~i3dr_stereo_tpu_torch.ops.fused_cost_sgm` in the pyramid and in
 SGBM with the BT cost at ``window_size <= 1``; everything else is the
-same on both, as in the reference. The hole-filling options (``interp``,
-``interpolate_missing``) need the WLS fill and raise
-``NotImplementedError`` naming ROADMAP.md Queue 1 item 2.
+same on both, as in the reference. The hole-filling options follow the
+reference: ``interp`` is the backward-match-driven WLS fill
+(:func:`_interp_backward_wls`) in BM and SGBM, ``interpolate_missing``
+the plain WLS fill, and dense I3DRSGM takes the plain WLS fill for
+either (the ``wls_lines`` kernel on a CUDA tensor).
 """
 
 from __future__ import annotations
@@ -51,7 +53,8 @@ from i3dr_stereo_tpu_torch.ops.cost import (
     xsobel_prefilter,
 )
 from i3dr_stereo_tpu_torch.ops.fused_cost_sgm import fused_bt_sgm
-from i3dr_stereo_tpu_torch.ops.lr_check import lr_consistency
+from i3dr_stereo_tpu_torch.ops.lr_check import (lr_consistency,
+                                                right_cost_volume)
 from i3dr_stereo_tpu_torch.ops.median import median3x3_masked
 from i3dr_stereo_tpu_torch.ops.sgm import (
     DIRECTIONS_4,
@@ -60,14 +63,29 @@ from i3dr_stereo_tpu_torch.ops.sgm import (
     sgm_aggregate,
 )
 from i3dr_stereo_tpu_torch.ops.speckle import speckle_filter
+from i3dr_stereo_tpu_torch.ops.wls import wls_fill, wls_fill_lr
 from i3dr_stereo_tpu_torch.ops.wta import wta_disparity
 
 
-def _reject_hole_filling(cfg: MatcherConfig) -> None:
-    if cfg.interp or cfg.interpolate_missing:
-        raise NotImplementedError(
-            "hole filling (interp / interpolate_missing: the WLS fill) is "
-            "not ported yet (ROADMAP.md Queue 1 item 2)")
+def _interp_backward_wls(disp, valid, S, cfg: MatcherConfig, left):
+    """The reference's full interp path: a right-anchored backward match
+    feeding LR-confidence-weighted WLS (matcherOpenCVBlock.cpp:22-33),
+    the backward match taken from the aggregated volume (no second match
+    pass)."""
+    SR = right_cost_volume(S, cfg.min_disparity)
+    disp_r, ok_r = wta_disparity(SR, cfg.min_disparity, uniqueness_ratio=0.0,
+                                 subpixel=cfg.subpixel)
+    return wls_fill_lr(disp, valid, disp_r, ok_r, left)
+
+
+def _fill_holes(disp, valid, S, cfg: MatcherConfig, left):
+    """BM's and SGBM's hole filling: ``interp`` the backward WLS fill,
+    ``interpolate_missing`` the plain WLS fill."""
+    if cfg.interp:
+        return _interp_backward_wls(disp, valid, S, cfg, left)
+    if cfg.interpolate_missing:
+        return wls_fill(disp, valid, left)
+    return disp, valid
 
 
 def _batched(left, right):
@@ -110,8 +128,9 @@ def _speckle(disp, valid, cfg: MatcherConfig):
                           downsample=cfg.speckle_downsample)
 
 
-def _postprocess(disp, valid, S, cfg: MatcherConfig):
-    """The shared post-match chain of SGBM: LR check, speckle, median."""
+def _postprocess(disp, valid, S, cfg: MatcherConfig, left):
+    """The shared post-match chain of SGBM: LR check, speckle, median,
+    hole filling."""
     if cfg.disp12_max_diff >= 0 and cfg.algorithm != Algorithm.BM:
         disp, valid = lr_consistency(
             disp, valid, S, cfg.min_disparity,
@@ -119,16 +138,15 @@ def _postprocess(disp, valid, S, cfg: MatcherConfig):
     valid = _speckle(disp, valid, cfg)
     if cfg.median_filter:
         disp = median3x3_masked(disp, valid)
-    return disp, valid
+    return _fill_holes(disp, valid, S, cfg, left)
 
 
 def bm_match(left, right, cfg: MatcherConfig, *,
              lean: bool = False) -> MatchResult:
     """Block matching (cv::StereoBM semantics): x-Sobel or
     normalized-response prefilter, SAD over the correlation window, WTA
-    with texture and uniqueness checks, speckle filter, subpixel. It has
-    no SGM, so ``lean`` changes nothing."""
-    _reject_hole_filling(cfg)
+    with texture and uniqueness checks, speckle filter, subpixel, hole
+    filling. It has no SGM, so ``lean`` changes nothing."""
     l, r, batched = _batched(left, right)
     if cfg.prefilter_type == "normalized_response":
         pl = normalized_response_prefilter(l, cfg.prefilter_size,
@@ -148,6 +166,7 @@ def bm_match(left, right, cfg: MatcherConfig, *,
         tex = texture_response(pl, cfg.window_size, cfg.prefilter_cap)
         valid = valid & (tex >= cfg.texture_threshold * cfg.window_size)
     valid = _speckle(disp, valid, cfg)
+    disp, valid = _fill_holes(disp, valid, S, cfg, l)
     return _result(disp, valid, batched)
 
 
@@ -162,7 +181,6 @@ def sgbm_match(left, right, cfg: MatcherConfig, *,
     forward pass (kernel ``fused_bt_fwd``), a uint8 volume and int16
     partials for the other directions. With any other cost or window it
     falls through to the default branch, as the reference does."""
-    _reject_hole_filling(cfg)
     l, r, batched = _batched(left, right)
     if lean and cfg.cost == CostFunction.BT and cfg.window_size <= 1:
         H, W = l.shape[-2:]
@@ -177,7 +195,7 @@ def sgbm_match(left, right, cfg: MatcherConfig, *,
                                     uniqueness_ratio=cfg.uniqueness_ratio,
                                     subpixel=cfg.subpixel)
         valid = valid & (C.amin(-1) < 255)
-        disp, valid = _postprocess(disp, valid, S.to(torch.float32), cfg)
+        disp, valid = _postprocess(disp, valid, S.to(torch.float32), cfg, l)
         return _result(disp, valid, batched)
     C, valid_cv = _cost_volume(l, r, cfg)
     C = box_aggregate(C, valid_cv, cfg.window_size)
@@ -185,14 +203,15 @@ def sgbm_match(left, right, cfg: MatcherConfig, *,
     disp, valid = wta_disparity(S, cfg.min_disparity,
                                 uniqueness_ratio=cfg.uniqueness_ratio,
                                 subpixel=cfg.subpixel)
-    disp, valid = _postprocess(disp, valid, S, cfg)
+    disp, valid = _postprocess(disp, valid, S, cfg, l)
     return _result(disp, valid, batched)
 
 
 def i3drsgm_match(left, right, cfg: MatcherConfig, *,
                   lean: bool = False) -> MatchResult:
     """Census SGM with the Phobos-profile feature set: census window, 4
-    path directions, backmatching check, speckle, median 3x3. With
+    path directions, backmatching check, speckle, median 3x3, and the WLS
+    fill with ``interp`` or ``interpolate_missing``. With
     ``cfg.pyramid`` the coarse-to-fine schedule runs
     (:mod:`~i3dr_stereo_tpu_torch.matchers.pyramid`), its lean levels
     with ``lean=True``. The dense path is the same on both backends and
@@ -213,7 +232,6 @@ def i3drsgm_match(left, right, cfg: MatcherConfig, *,
         return pyramid_sgm_match(
             left, right, cfg.replace(pyramid=True, max_pyramid_level=n),
             lean=lean)
-    _reject_hole_filling(cfg)
     l, r, batched = _batched(left, right)
     C, _ = _cost_volume(l, r, cfg)
     S = sgm_aggregate(C, cfg.p1, cfg.p2, _directions(cfg))
@@ -226,6 +244,8 @@ def i3drsgm_match(left, right, cfg: MatcherConfig, *,
     valid = _speckle(disp, valid, cfg)
     if cfg.median_filter:
         disp = median3x3_masked(disp, valid)
+    if cfg.interp or cfg.interpolate_missing:
+        disp, valid = wls_fill(disp, valid, l)
     return _result(disp, valid, batched)
 
 

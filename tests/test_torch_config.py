@@ -239,11 +239,22 @@ def test_kernel_wrappers_reject_non_cuda_accelerator_tensors():
         block_shift_gather(src, idx, q, 4)
 
 
-@pytest.mark.parametrize("op", ["remap", "speckle_keep"])
+@pytest.mark.parametrize("op", ["remap", "speckle_keep", "gauss_rays",
+                                "wls_lines"])
 def test_new_kernel_wrappers_reject_non_cuda_accelerator_tensors(op):
-    from i3dr_stereo_tpu_torch.ops import rectify, speckle
+    from i3dr_stereo_tpu_torch.ops import gauss_interp, rectify, speckle, wls
 
-    if op == "remap":
+    if op == "gauss_rays":
+        d = torch.zeros((1, 8, 16), device="meta")
+        v = torch.zeros((1, 8, 16), dtype=torch.bool, device="meta")
+        with pytest.raises(ValueError, match="CUDA"):
+            gauss_interp.gauss_interpolate(d, v)
+    elif op == "wls_lines":
+        d = torch.zeros((1, 8, 16), device="meta")
+        with pytest.raises(ValueError, match="CUDA"):
+            wls.thomas_lines(d, torch.zeros((1, 7, 16), device="meta"), d,
+                             5.0, vertical=True)
+    elif op == "remap":
         m = rectify.make_rectify_map(camera.CameraModel.ideal(16, 8, 10.0),
                                      device="meta")
         with pytest.raises(ValueError, match="CUDA"):
@@ -256,27 +267,70 @@ def test_new_kernel_wrappers_reject_non_cuda_accelerator_tensors(op):
 
 
 def test_unported_features_raise():
+    """The options that raised before the post-match stages were ported
+    now run through ``StereoPipeline.update_config`` and match the JAX
+    pipeline (its TPU branch, ``pallas_t_interpret``): occlusion detection
+    and fill with the Gauss gap fill on the pyramid, and the dense
+    I3DRSGM's ``interp`` (the WLS fill; every pixel also within 2e-3 px
+    of a float64 witness of it). Rectification is off on both
+    sides (XLA's CPU remap fuses multiply-adds, which
+    tests/test_torch_pipeline_full.py covers). BP / CSBP still raise,
+    naming their ROADMAP item."""
+    from i3dr_stereo_tpu.pipeline.stereo_pipeline import (
+        StereoPipeline as RefPipeline)
+    from i3dr_stereo_tpu_torch.matchers import registry
     from i3dr_stereo_tpu_torch.matchers.registry import MATCHER_REGISTRY
     from i3dr_stereo_tpu_torch.pipeline.stereo_pipeline import StereoPipeline
+    from test_torch_postmatch import check_wls_witness, record_wls
 
+    sc = layered_scene(48, 64, max_disp=12, seed=3)
     rig = camera.StereoRig.synthetic(64, 48)
     base = params.ALGORITHM_DEFAULTS[params.Algorithm.I3DRSGM]
+    assert base.speckle_size == 100
+    ref_base = ref_params.ALGORITHM_DEFAULTS[ref_params.Algorithm.I3DRSGM]
+    # depth bounds off: every disparity reaches the result
+    pipe = StereoPipeline(rig, base.replace(max_pyramid_level=2),
+                          params.PointCloudConfig(depth_min=0.0,
+                                                  depth_max=0.0),
+                          device="cpu", rectify_inputs=False)
+    ref = RefPipeline(ref_camera.StereoRig.synthetic(64, 48),
+                      ref_base.replace(max_pyramid_level=2),
+                      ref_params.PointCloudConfig(depth_min=0.0,
+                                                  depth_max=0.0),
+                      rectify_inputs=False)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("I3DR_SGM_BACKEND", "pallas_t_interpret")
+        mp.setenv("I3DR_SPECKLE_BACKEND", "pallas_interpret")
+        for kw, tol in ((dict(occlusion_detection=True,
+                              occlusion_interp=True,
+                              interpolate_missing=True), 1e-5),
+                        (dict(occlusion_detection=False,
+                              occlusion_interp=False,
+                              interpolate_missing=False, pyramid=False,
+                              disparity_range=32, interp=True), 1e-3)):
+            pipe.update_config(**kw)
+            ref.update_config(**kw)
+            with pytest.MonkeyPatch.context() as rec:
+                calls = record_wls(rec, registry)
+                got = pipe.process(sc.left, sc.right)
+            want = ref.process(sc.left, sc.right)
+            d, d_ref = got.disparity.numpy(), np.asarray(want.disparity)
+            np.testing.assert_array_equal(got.valid.numpy(),
+                                          np.asarray(want.valid))
+            assert got.valid.float().mean() > 0.9
+            # the reference's WLS fill can divide by a zero pivot (NaN);
+            # the port's is finite and agrees with the float64 witness
+            # (tests/test_torch_postmatch.py)
+            ok = np.isfinite(d_ref)
+            assert np.isfinite(d).all() and ok.mean() > 0.5
+            np.testing.assert_allclose(d[ok], d_ref[ok], rtol=0, atol=tol)
+            if kw.get("interp"):
+                check_wls_witness(d, calls, d_ref)
+            else:
+                assert not calls
     img = np.zeros((48, 64), np.float32)
-    # rectification and speckle (size 100 by default) are ported
-    pipe = StereoPipeline(rig, base, device="cpu")
-    assert pipe.rectify_inputs and pipe.config.speckle_size == 100
-    pipe.update_config(occlusion_detection=True)
-    with pytest.raises(NotImplementedError, match="occlusion"):
-        pipe.process(img, img)
-    pipe.update_config(occlusion_detection=False, interpolate_missing=True)
-    with pytest.raises(NotImplementedError, match="hole filling"):
-        pipe.process(img, img)
-    # dense (pyramid=False) I3DRSGM, SGBM and BM are ported; their hole
-    # filling (the WLS fill) and BP / CSBP are not
-    pipe.update_config(interpolate_missing=False, pyramid=False, interp=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pipe.process(img, img)
     for alg, fn in MATCHER_REGISTRY.items():
         if alg in (params.Algorithm.BP_GPU, params.Algorithm.CSBP_GPU):
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
+            with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
                 fn(img, img, params.ALGORITHM_DEFAULTS[alg])
+

@@ -102,25 +102,42 @@ def test_profile_from_config_matches_reference():
 @pytest.mark.parametrize("shape,filled", [((48, 56), True),
                                           ((64, 80), False)])
 def test_gap_filling_is_rejected_on_the_clamped_levels(shape, filled):
-    """Which level is the finest, and so would fill its gaps, is decided
-    after the levels are clamped to the image size, as in the reference
-    (its ``finest = p.level == 0`` reads the clamped level). A profile
-    whose only level is 1 with gap filling on: a 48x56 image clamps it to
-    level 0, where the reference would fill and the port must refuse
-    rather than return unfilled disparities; at 64x80 the level stays 1,
-    nothing is filled in either package, and the port runs."""
-    from i3dr_stereo_tpu_torch.config.profile import (PyramidLevelConfig,
-                                                      SGMProfile)
+    """Which level is the finest, and so fills its gaps, is decided after
+    the levels are clamped to the image size, as in the reference (its
+    ``finest = p.level == 0`` reads the clamped level). A profile whose
+    only level is 1 with gap filling on: a 48x56 image clamps it to level
+    0, where both packages fill the holes with the Gauss interpolator; at
+    64x80 the level stays 1 and neither fills. Valid masks equal,
+    disparities within 1e-5 px (an ulp of exp in the Gauss weights)."""
+    from i3dr_stereo_tpu.config.profile import (
+        PyramidLevelConfig as RefLevel, SGMProfile as RefProfile)
+    from i3dr_stereo_tpu.matchers.pyramid import pyramid_sgm_match as ref
+    from i3dr_stereo_tpu_torch.convert import profile_from_reference
 
-    profile = SGMProfile(name="level_1_only", levels=(
-        PyramidLevelConfig(level=1, interpolate_gaps=True, speckle=False,
-                           prediction_shift=0.0),))
+    def make(fill):
+        return RefProfile(name="level_1_only", levels=(
+            RefLevel(level=1, interpolate_gaps=fill, speckle=False,
+                     prediction_shift=0.0),))
+
     rng = np.random.default_rng(5)
-    img = torch.from_numpy(rng.uniform(0, 255, shape).astype(np.float32))
+    img = rng.uniform(0, 255, shape).astype(np.float32)
+    right = np.roll(img, -3, axis=1)     # disparity 3: a band of holes
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("I3DR_SGM_BACKEND", "pallas_t_interpret")
+        want = ref(img, right, _cfg(), make(True))
     cfg = config_from_reference(_cfg())
+    res = pyr.pyramid_sgm_match(torch.from_numpy(img),
+                                torch.from_numpy(right), cfg,
+                                profile_from_reference(make(True)))
+    assert tuple(res.disparity.shape) == shape
+    np.testing.assert_array_equal(res.valid.numpy(), np.asarray(want.valid))
+    np.testing.assert_allclose(res.disparity.numpy(),
+                               np.asarray(want.disparity), rtol=0, atol=1e-5)
+    unfilled = pyr.pyramid_sgm_match(torch.from_numpy(img),
+                                     torch.from_numpy(right), cfg,
+                                     profile_from_reference(make(False)))
     if filled:
-        with pytest.raises(NotImplementedError, match="hole filling"):
-            pyr.pyramid_sgm_match(img, img, cfg, profile)
+        assert res.valid.sum() > unfilled.valid.sum()
     else:
-        res = pyr.pyramid_sgm_match(img, img, cfg, profile)
-        assert tuple(res.disparity.shape) == shape
+        assert torch.equal(res.valid, unfilled.valid)
+        assert torch.equal(res.disparity, unfilled.disparity)

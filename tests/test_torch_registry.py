@@ -158,7 +158,17 @@ def test_create_matcher_forward_backward_and_encodings(facade_reference):
     np.testing.assert_array_equal(fwd.with_nodata().numpy(), ref["nodata"])
 
 
-def test_matcher_update_and_unported_options():
+def test_matcher_update_and_unported_options(tpu_branch):
+    """Live updates; ``interp`` (the backward-match-driven WLS fill of BM
+    and SGBM, the plain WLS fill of dense I3DRSGM) runs and matches the
+    reference (valid everywhere on both sides; disparities within 1e-3
+    px, XLA's FMAs in the WLS solver, where the reference is finite: its
+    WLS can divide by a zero pivot, see tests/test_torch_postmatch.py;
+    everywhere within 2e-3 px of a float64 witness of the fill);
+    ``downsample_scale`` and BP / CSBP still raise, naming their items."""
+    from i3dr_stereo_tpu.matchers.registry import compute_disparity as ref
+    from test_torch_postmatch import check_wls_witness, record_wls
+
     m = base.create_matcher(params.Algorithm.SGBM, device="cpu")
     assert m.config == params.ALGORITHM_DEFAULTS[params.Algorithm.SGBM]
     m.update(p1=10.0, disparity_range=40)
@@ -167,13 +177,27 @@ def test_matcher_update_and_unported_options():
     img = np.zeros((H, W), np.float32)
     with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
         m.match(img, img)
-    for alg in (params.Algorithm.SGBM, params.Algorithm.BM,
-                params.Algorithm.I3DRSGM):
-        cfg = params.ALGORITHM_DEFAULTS[alg].replace(pyramid=False,
-                                                     disparity_range=32,
-                                                     interp=True)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-            registry.compute_disparity(img, img, cfg)
+    l, r = _scene((H, W), seed=4)
+    for alg in (Algorithm.SGBM, Algorithm.BM, Algorithm.I3DRSGM):
+        cfg = ALGORITHM_DEFAULTS[alg].replace(pyramid=False,
+                                              disparity_range=32,
+                                              interp=True)
+        want = ref(l, r, cfg)
+        with pytest.MonkeyPatch.context() as mp:
+            calls = record_wls(mp, registry)
+            got = registry.compute_disparity(l, r, config_from_reference(cfg))
+        np.testing.assert_array_equal(got.valid.numpy(),
+                                      np.asarray(want.valid))
+        assert got.valid.all()
+        d, d_ref = got.disparity.numpy(), np.asarray(want.disparity)
+        ok = np.isfinite(d_ref)
+        assert np.isfinite(d).all() and ok.mean() > 0.5, alg
+        np.testing.assert_allclose(d[ok], d_ref[ok], rtol=0, atol=1e-3)
+        # every pixel, the ones the reference leaves NaN included, against
+        # the float64 witness of the fill the matcher ran
+        assert [c[0] for c in calls] == [
+            "wls_fill" if alg == Algorithm.I3DRSGM else "wls_fill_lr"]
+        check_wls_witness(d, calls, d_ref)
     for alg in (params.Algorithm.BP_GPU, params.Algorithm.CSBP_GPU):
         with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
             registry.compute_disparity(img, img, params.ALGORITHM_DEFAULTS[alg])
