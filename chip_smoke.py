@@ -130,13 +130,17 @@ final result line) on the first thing that is wrong:
 13. runs the post-match kernels against their twins: ``gauss_rays`` (the
     32-direction Gauss fill) on level 0's disparities and valid mask of
     the flagship frame (its own holes, timed) and at 9 more shapes
-    (B = 2, ragged, min_elements 5 and 32, 16 directions at radius 16,
-    weights that underflow, radius 200 and 2, all holes, no hole): masks
-    bit-equal, values within 1e-6 relative (exp); ``wls_lines`` (the WLS
-    line solve) for the horizontal and the vertical pass at 2448x2048
-    and 1280x1024 on that frame's guide, data and mask: bit-equal, each
-    timed; one line alone of 2448 and of 2048 (the chain); the whole
-    WLS fill (6 launches) timed;
+    (B = 2, ragged, min_elements 5 and 32, 16 directions at radius 40,
+    weights that underflow, radius 33, 8 directions, all holes, no
+    hole): masks bit-equal, values within 1e-6 relative (exp); radius 32
+    and 65 raise; ``wls_lines`` (the WLS line solve) for the horizontal
+    and the vertical pass at 2448x2048 and 1280x1024 on that frame's
+    guide, data and mask: bit-equal, each timed; at 8 more shapes (lines
+    of 1 to 4095 elements, blocks of 1, 2, 4 and 8 lines, B = 2 with
+    blocks of lines across the two planes, rows off 16-byte alignment)
+    both passes bit-equal;
+    one line alone of 2448 and of 2048 (the chain); the whole WLS fill
+    (6 launches) timed;
 14. drives the ``I3DRSGM`` facade (``matchers/i3drsgm.py``) on the
     flagship scene (rectified float32 images) with ``quick_profile()``
     and ``subpix_profile()``: every kernel of its path must launch
@@ -2121,12 +2125,37 @@ def phase_postmatch(stats, card):
             if H == H_FULL and not vertical:
                 st["ms"], st["back_to_back_ms"] = ms, b2b
                 st["plain_ms"] = plain_ms
-                # a, w, d in and u out once; ~12 float ops an element
-                set_bound(stats, "wls_lines", 16 * n, 12 * n)
+                # a, w, d in and u out once; ~25 float ops an element (its
+                # row 7, the elimination 8, the walk back 6, the back
+                # substitution 4)
+                set_bound(stats, "wls_lines", 16 * n, 25 * n)
             elif H == H_FULL:
                 st["vertical_ms"], st["vertical_back_to_back_ms"] = ms, b2b
                 st["vertical_plain_ms"] = plain_ms
-    # the chain: one line alone, a thread, N dependent steps
+    # every path of the kernel: a block's lines of 1, 2, 4 or 8, rows in
+    # 16-byte pieces or not, blocks of lines across two planes
+    rng = np.random.default_rng(17)
+    shapes = ((1, 3, 1), (2, 5, 2), (1, 9, 33), (2, 12, 100), (2, 20, 12),
+              (1, 4, 4095), (1, 33, 130), (1, 576, 576))
+    for B, H, W in shapes:
+        ra = torch.tensor(rng.random((B, H, W)) > 0.3, device=dev).float()
+        rd = torch.tensor(rng.uniform(0, 30, (B, H, W)), device=dev).float()
+        for vertical in (False, True):
+            rw = torch.tensor(rng.random((B, H - 1, W) if vertical else
+                                         (B, H, W - 1)), device=dev).float()
+            if W == 130:   # rows off 16-byte alignment: a view one in
+                ra, rd = (torch.cat([x.flatten(), x.new_zeros(1)])[1:]
+                          .view(B, H, W) for x in (ra, rd))
+            k = wls.thomas_lines(ra, rw, rd, lam, vertical=vertical)
+            p = wls.thomas_lines(ra, rw, rd, lam, vertical=vertical,
+                                 plain=True)
+            torch.cuda.synchronize()
+            check(torch.equal(k, p), f"wls_lines {B}x{H}x{W} "
+                  f"{'vertical' if vertical else 'horizontal'}: differs "
+                  f"from the twin")
+    print(f"wls_lines at {len(shapes)} more shapes ({shapes}), both passes: "
+          f"bit-equal", flush=True)
+    # the chain: one line alone, 32 segments, ~N / 32 dependent steps each
     for N in (W_FULL, H_FULL):
         one_a = torch.rand((1, 1, N), device=dev)
         one_w = torch.rand((1, 1, N - 1), device=dev)

@@ -80,10 +80,10 @@ _SIGNATURES = {
     # inv_two_sig2, min_rays, stream
     "i3dr_gauss_rays": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F,
                         _P),
-    # a, w, d, u, cp, B, L, N, plane, line, step, wplane, wline, wstep,
-    # lam, stream
-    "i3dr_wls_lines": (_P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _L, _L, _L, _L,
-                       _F, _P),
+    # a, w, d, u, B, L, N, plane, line, step, wplane, wline, wstep, lam,
+    # stream
+    "i3dr_wls_lines": (_P, _P, _P, _P, _I, _I, _I, _L, _L, _L, _L, _L, _L, _F,
+                       _P),
     # out (uint32, blocks * 256), blocks, iters, stream: the popcount-rate
     # probe (blocks * 256 * iters * 8 popcounts); no kernel of any path
     "i3dr_popc_probe": (_P, _I, _I, _P),

@@ -49,8 +49,8 @@ class MatcherConfig:
     backmatching threshold) from I3DRSGM.cpp:294-508 / ini/quick.param —
     expressed in natural units (pixels, cost units), with the reference's
     INI unit quirks (÷1000 penalties, ÷10 range, ÷20 shift) handled in
-    the JAX package's ``config.profile.from_ros_convention`` (not ported
-    yet).
+    ``config.profile.from_ros_convention`` (this package's copy of the
+    JAX package's function).
     """
 
     algorithm: Algorithm = Algorithm.BM

@@ -13,8 +13,9 @@ compute exactly what the reference computes.
 
 - :func:`gauss_interpolate` launches the ``gauss_rays`` kernel
   (``csrc/gauss_rays.cu``: one launch for all directions, each hole's
-  doubling evaluated as the recursion it unrolls into) for a CUDA tensor,
-  and runs :func:`gauss_interpolate_plain` for a CPU tensor or with
+  doubling evaluated as the recursion it unrolls into, its last two
+  levels' leaves gathered at once) for a CUDA tensor, and runs
+  :func:`gauss_interpolate_plain` for a CPU tensor or with
   ``plain=True``.
 - :func:`gauss_interpolate_plain` is a line-for-line port of the
   reference's rounds: about 10 launches a round, 192 rounds at 32

@@ -14,12 +14,15 @@ with guide edge weights w_i = exp(-|I_{i+1} - I_i| / sigma) and data
 weights a_i (1 on valid pixels, 0 in holes, the confidence for
 :func:`wls_fill_lr`).
 
-The line solve (the reference's two ``lax.scan``s of ``_thomas_rows``) is
-:func:`thomas_lines`: on a CUDA tensor the ``wls_lines`` kernel
-(``csrc/wls_lines.cu``, a thread a line, one launch a pass, the vertical
-pass by strides with no transposed copy); on a CPU tensor, or with
-``plain=True``, its twin :func:`thomas_lines_plain`, a Python loop over
-the line. Everything else is plain torch on every device.
+The line solve (the reference's two ``lax.scan``s of ``_thomas_rows``,
+Thomas's algorithm) is :func:`thomas_lines`, which solves the same
+system by a partition method (each line cut into 32 segments solved side
+by side, then the segments' interface rows): on a CUDA tensor the
+``wls_lines`` kernel (``csrc/wls_lines.cu``, a thread a segment, one
+launch a pass, the vertical pass by strides with no transposed copy); on
+a CPU tensor, or with ``plain=True``, its twin
+:func:`thomas_lines_plain`, the same operations vectorised over the
+segments. Everything else is plain torch on every device.
 """
 
 from __future__ import annotations
@@ -37,12 +40,27 @@ def div_const(x: torch.Tensor, c: float) -> torch.Tensor:
     return x * float(np.float32(1.0) / np.float32(c))
 
 
+PARTS = 32   # segments a line of the partitioned solve
+
+
+def _pivot(den: torch.Tensor) -> torch.Tensor:
+    """A pivot that is exactly 0 (the reference divides by it: NaN, then
+    NaN over the whole image) takes the 1e-8 the diagonal was given."""
+    return torch.where(den == 0, 1e-8, den)
+
+
 def thomas_lines_plain(a: torch.Tensor, w: torch.Tensor, d: torch.Tensor,
                        lam: float) -> torch.Tensor:
-    """Plain torch twin of the ``wls_lines`` kernel: the reference's
-    ``_thomas_rows``, the 1-D WLS system solved along the last axis.
-    a, d: (..., N); w: (..., N-1) edge weights between i and i+1;
-    ``lam`` a Python float (used as float32). Returns u (..., N)."""
+    """Plain torch twin of the ``wls_lines`` kernel: the 1-D WLS system of
+    the reference's ``_thomas_rows`` solved along the last axis by the
+    kernel's partition method, op for op (``csrc/wls_lines.cu`` says how):
+    S = ceil(N / 32) made odd, segment k = [k S, min(k S + S, N)), its last
+    element an interface; each interior eliminated from the left (a
+    reciprocal of the pivot, three products) and its first
+    element expressed by substituting back, the interface rows solved by
+    Thomas's algorithm, the interiors substituted back.
+    a, d: (..., N); w: (..., N-1) edge weights between i and i+1; ``lam`` a
+    Python float (used as float32). Returns u (..., N)."""
     N = d.shape[-1]
     zeros = torch.zeros_like(d[..., :1])
     wl = torch.cat([zeros, w], -1)                 # w_{i-1}, 0 at i = 0
@@ -51,24 +69,69 @@ def thomas_lines_plain(a: torch.Tensor, w: torch.Tensor, d: torch.Tensor,
     lower = -lam * wl                              # coefficient of u_{i-1}
     upper = -lam * wr                              # coefficient of u_{i+1}
     rhs = a * d
-    cp = dp = torch.zeros_like(d[..., 0])
-    cps, dps = [], []
-    for i in range(N):
-        lo = lower[..., i]
-        denom = diag[..., i] - lo * cp
-        # a zero pivot (the reference divides by it: NaN, then NaN over
-        # the whole image) takes the 1e-8 the diagonal was given
-        denom = torch.where(denom == 0, 1e-8, denom)
-        cp = upper[..., i] / denom
-        dp = (rhs[..., i] - lo * dp) / denom
-        cps.append(cp)
-        dps.append(dp)
-    u = torch.empty_like(d)
-    un = torch.zeros_like(d[..., 0])
-    for i in range(N - 1, -1, -1):
-        un = dps[i] - cps[i] * un
-        u[..., i] = un
-    return u
+    S = -(-N // PARTS) | 1     # odd: the kernel's segments on different banks
+    K = -(-N // S)
+
+    def seg(x):                                    # (..., K, S)
+        return torch.nn.functional.pad(x, (0, K * S - N)).unflatten(-1,
+                                                                    (K, S))
+
+    dg, lo, up, f = (seg(x) for x in (diag, lower, upper, rhs))
+    m = torch.full((K,), S - 1, device=d.device)   # interior lengths
+    m[-1] = N - (K - 1) * S - 1
+    zero = torch.zeros_like(dg[..., 0])            # (..., K)
+    # 1. each interior eliminated from the left (c, P, Q kept), then its
+    # first element in terms of X_{k-1} and X_k (alpha, beta, gamma) by
+    # substituting back over them
+    c, P, Q = zero, zero, torch.ones_like(zero)
+    cs, Ps, Qs = [], [], []
+    for i in range(S - 1):
+        on = i < m
+        inv = torch.reciprocal(_pivot(dg[..., i] - lo[..., i] * c))
+        c, P, Q = (torch.where(on, new, old) for new, old in (
+            (up[..., i] * inv, c), ((f[..., i] - lo[..., i] * P) * inv, P),
+            (-lo[..., i] * Q * inv, Q)))
+        cs.append(c)
+        Ps.append(P)
+        Qs.append(Q)
+    al, be, ga = zero, zero, torch.ones_like(zero)
+    for i in range(S - 2, -1, -1):
+        on = i < m
+        al, be, ga = (torch.where(on, new, old) for new, old in (
+            (Ps[i] - cs[i] * al, al), (Qs[i] - cs[i] * be, be),
+            (-(cs[i] * ga), ga)))
+    # 2. the interface rows (the next segment's first interior element, 0
+    # past the last), then Thomas's algorithm on them
+    al, be, ga = (torch.cat([x[..., 1:], zero[..., :1]], -1)
+                  for x in (al, be, ga))
+    ks = torch.arange(K, device=d.device)
+    lb, db, ub, fb = (x[..., ks, m] for x in (lo, dg, up, f))
+    A = lb * Q
+    D = (db - lb * c) + ub * be
+    C = ub * ga
+    R = (fb - lb * P) - ub * al
+    cr = dr = zero[..., 0]
+    crs, drs = [], []
+    for k in range(K):
+        inv = torch.reciprocal(_pivot(D[..., k] - A[..., k] * cr))
+        cr = C[..., k] * inv
+        dr = (R[..., k] - A[..., k] * dr) * inv
+        crs.append(cr)
+        drs.append(dr)
+    X = [drs[-1]]
+    for k in range(K - 2, -1, -1):
+        X.append(drs[k] - crs[k] * X[-1])
+    X = torch.stack(X[::-1], -1)                   # (..., K)
+    Xl = torch.cat([zero[..., :1], X[..., :-1]], -1)
+    # 3. back substitution of the interiors
+    u = torch.empty_like(dg)
+    u[..., ks, m] = X
+    x = X
+    for i in range(S - 2, -1, -1):
+        on = i < m
+        x = torch.where(on, (Ps[i] - cs[i] * x) + Qs[i] * Xl, x)
+        u[..., i] = torch.where(on, x, u[..., i])
+    return u.flatten(-2)[..., :N]
 
 
 def thomas_lines(a: torch.Tensor, w: torch.Tensor, d: torch.Tensor,
@@ -101,14 +164,13 @@ def _lines_kernel(a: torch.Tensor, w: torch.Tensor, d: torch.Tensor,
                          f"{want})")
     _build.require_cuda(a, w, d)
     u = torch.empty_like(d)
-    cp = torch.empty_like(d)
     if vertical:   # lines are columns: L = W lines of N = H elements
         L, N, lay = W, H, (H * W, 1, W, (H - 1) * W, 1, W)
     else:          # lines are rows
         L, N, lay = H, W, (H * W, W, 1, H * (W - 1), W - 1, 1)
     _build.launch("i3dr_wls_lines", "wls_lines", d.device, a.data_ptr(),
-                  w.data_ptr(), d.data_ptr(), u.data_ptr(), cp.data_ptr(), B,
-                  L, N, *lay, float(lam), _build.stream_of(d))
+                  w.data_ptr(), d.data_ptr(), u.data_ptr(), B, L, N, *lay,
+                  float(lam), _build.stream_of(d))
     return u
 
 

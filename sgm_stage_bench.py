@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """The flagship SGM stage, the census-cost kernels, the volume SGM
-aggregation, the speckle filter, the BT forward pass, the row gather, both
-flagship frames and the SGBM frames of one or more checkouts of the
-PyTorch + CUDA port, measured in turns on one NVIDIA GPU.
+aggregation, the speckle filter, the BT forward pass, the row gather, the
+post-match kernels, both flagship frames, the SGBM frames and the
+post-match frames of one or more checkouts of the PyTorch + CUDA port,
+measured in turns on one NVIDIA GPU.
 
     python3 sgm_stage_bench.py [--only SECTION,...] [ROOT ...]
 
@@ -14,7 +15,7 @@ process of its own, builds its own kernels and prints one JSON line; the
 scene, the level-0 inputs, the timing and the profile window are
 ``chip_smoke.py``'s of this checkout, so only the package differs.
 
-Per ROOT, with the card's name and power limit, in nine sections
+Per ROOT, with the card's name and power limit, in twelve sections
 (``--only`` names those to run, comma-separated; all by default):
 
 - ``level0``: level 0 of the flagship pyramid (2448x2048 padded to
@@ -60,9 +61,33 @@ Per ROOT, with the card's name and power limit, in nine sections
   busy, idle share, device activities a frame, the census-cost kernels',
   the census transform's, the remap's, the volume SGM kernels' and the
   BT forward pass's time a frame) and a digest of the disparity and
-  valid mask.
+  valid mask;
+- ``gauss``: ``gauss_interpolate`` (32 directions, radius 64) on the
+  flagship frame's level-0 disparities and valid mask, as
+  ``chip_smoke.py:phase_postmatch`` makes them: ms (median of 10), ms a
+  call of 10 back to back, a digest of both outputs; and back to back on
+  two halves of its holes: those of the left border band (the columns
+  left of the first one with fewer than half its pixels holes; holes
+  wider than the radius) and the rest (scattered holes), with each
+  half's hole count;
+- ``wls``: ``thomas_lines`` of the WLS fill's first pass (lam = 3047.6)
+  on that frame's mask, guide and disparities at 2448x2048, horizontal
+  and vertical: ms (median of 10), ms a call of 10 back to back, a
+  digest, the largest difference from a float64 Thomas solve of the
+  same system on the card; one line of 2448 alone and 64 such lines
+  (the chain); ``wls_fill`` whole (6 launches);
+- ``postmatch_frames``: the engine facade at ``quick_profile()``
+  (rectified float32 in) and the flagship frame with ``interp``,
+  occlusion detection and fill: ms/frame (median of 10), the five-frame
+  profile (busy, idle share, activities, ``gauss_rays`` and
+  ``wls_lines`` time a frame) and a digest of the disparity and valid
+  mask.
 
-The last line says whether all roots gave the same digests.
+The last line says whether all roots gave the same digests. The WLS
+digests (``wls_digest``, ``interp_frame_digest``) are reported beside
+it, not held equal: a redesign of the line solve may round differently,
+and ``wls_f64_err_*`` says how far each root is from the float64
+solve.
 
 Every entry point is called with its device (``device="cuda"``), so a
 checkout whose defaults differ is measured on the card all the same.
@@ -91,13 +116,18 @@ BT_SYMBOLS = ("bt_fwd_kernel", "BtCost")
 # torch: elementwise kernels no symbol here names)
 TRANSFORM_SYMBOLS = ("census_fixed_kernel", "census_any_kernel")
 REMAP_SYMBOLS = ("remap_kernel",)
+POSTMATCH_SYMBOLS = {"gauss": "gauss_rays", "wls": "wls_lines"}
 SECTIONS = ("level0", "lean_level0", "sgbm_aggregate", "speckle", "bt_fwd",
-            "row_gather", "census", "remap", "frames")
+            "row_gather", "census", "remap", "frames", "gauss", "wls",
+            "postmatch_frames")
 DIGESTS = ("frame_digest", "lean_frame_digest", "sgbm_frame_digest",
            "lean_sgbm1_frame_digest", "level0_digest", "lean_level0_digest",
            "lean_level0_sgm_digest", "sgbm_aggregate_digest",
            "speckle_digest", "bt_fwd_int16_digest", "bt_fwd_float32_digest",
-           "row_gather_digest", "census_digest", "remap_digest")
+           "row_gather_digest", "census_digest", "remap_digest",
+           "gauss_digest", "facade_frame_digest")
+# reported, not held equal across roots (see the docstring)
+ROUNDING_DIGESTS = ("wls_digest", "interp_frame_digest")
 
 
 def digest(*tensors) -> str:
@@ -157,6 +187,16 @@ def measure(root: Path, sections) -> dict:
         remap(out, cs)
     if "frames" in sections:
         frames(out, cs, card, root.name)
+    if "gauss" in sections or "wls" in sections:
+        l, d, v = postmatch_inputs(cs, cfg, sc)
+        if "gauss" in sections:
+            gauss(out, cs, d, v)
+        if "wls" in sections:
+            wls_lines(out, cs, l, d, v)
+        del l, d, v
+        torch.cuda.empty_cache()
+    if "postmatch_frames" in sections:
+        postmatch_frames(out, cs, card, root.name)
     return out
 
 
@@ -374,6 +414,129 @@ def frames(out, cs, card, label):
         torch.cuda.empty_cache()
 
 
+def postmatch_inputs(cs, cfg, sc):
+    """The flagship frame's level-0 result, as phase_postmatch makes it:
+    (left image (1, H, W), disparities, valid mask)."""
+    import torch
+    from i3dr_stereo_tpu_torch.matchers.pyramid import pyramid_sgm_match
+
+    l = torch.tensor(sc.left, device=cs.DEVICE)[None]
+    r = torch.tensor(sc.right, device=cs.DEVICE)[None]
+    res = pyramid_sgm_match(l, r, cfg)
+    return l, res.disparity.contiguous(), res.valid.contiguous()
+
+
+def gauss(out, cs, d, v):
+    """The Gauss fill at level 0, whole and on two halves of its holes."""
+    import torch
+    from i3dr_stereo_tpu_torch.ops import gauss_interp as gi
+
+    call = lambda: gi.gauss_interpolate(d, v)
+    out["gauss_ms"] = cs.gpu_ms(call)
+    out["gauss_b2b_ms"] = cs.back_to_back_ms(call, iters=10)
+    out["gauss_digest"] = digest(*call())
+    # the left border band: columns left of the first with fewer than
+    # half its pixels holes
+    col_holes = (~v[0]).float().mean(0)
+    band = int(torch.nonzero(col_holes < 0.5)[0, 0])
+    x = torch.arange(v.shape[-1], device=v.device)
+    out["gauss_band_columns"] = band
+    for name, keep in (("band", x < band), ("scattered", x >= band)):
+        vv = (v | ~keep).contiguous()
+        out[f"gauss_{name}_holes"] = int((~vv).sum())
+        out[f"gauss_{name}_b2b_ms"] = cs.back_to_back_ms(
+            lambda: gi.gauss_interpolate(d, vv), iters=10)
+
+
+def thomas_f64(a, w, d, lam):
+    """The 1-D WLS system along the last axis in float64 on the card, by
+    Thomas's algorithm (no pivot is 0 in float64)."""
+    import torch
+
+    a, w, d = (x.double() for x in (a, w, d))
+    z = torch.zeros_like(d[..., :1])
+    wl, wr = torch.cat([z, w], -1), torch.cat([w, z], -1)
+    diag = a + lam * (wl + wr) + 1e-8
+    cp, dp = torch.empty_like(d), torch.empty_like(d)
+    c = p = torch.zeros_like(d[..., 0])
+    for i in range(d.shape[-1]):
+        den = diag[..., i] + lam * wl[..., i] * c
+        c = -lam * wr[..., i] / den
+        p = (a[..., i] * d[..., i] + lam * wl[..., i] * p) / den
+        cp[..., i], dp[..., i] = c, p
+    u, un = torch.empty_like(d), torch.zeros_like(d[..., 0])
+    for i in range(d.shape[-1] - 1, -1, -1):
+        un = dp[..., i] - cp[..., i] * un
+        u[..., i] = un
+    return u
+
+
+def wls_lines(out, cs, l, d, v):
+    """The WLS line solve at 2448x2048, both passes, and the fill."""
+    import torch
+    from i3dr_stereo_tpu_torch.ops import wls
+
+    lam = 1.5 * 8000.0 * 4.0 ** 2 / (4.0 ** 3 - 1.0)    # the first pass's
+    a = v.float()
+    gn = wls.div_const(l, 255.0)
+    outs = []
+    for vertical, name in ((False, "h"), (True, "v")):
+        w = wls._edge_weights(gn, 0.15, -2 if vertical else -1).contiguous()
+        call = lambda: wls.thomas_lines(a, w, d, lam, vertical=vertical)
+        out[f"wls_{name}_ms"] = cs.gpu_ms(call)
+        out[f"wls_{name}_b2b_ms"] = cs.back_to_back_ms(call, iters=10)
+        u = call()
+        outs.append(u)
+        t = (lambda x: x.transpose(-1, -2)) if vertical else (lambda x: x)
+        want = t(thomas_f64(t(a), t(w), t(d), lam))
+        out[f"wls_f64_err_{name}"] = (u.double() - want).abs().max().item()
+        del want
+    out["wls_digest"] = digest(*outs)
+    N = d.shape[-1]
+    for lines in (1, 64):
+        la = torch.rand((1, lines, N), device=cs.DEVICE)
+        lw = torch.rand((1, lines, N - 1), device=cs.DEVICE)
+        out[f"wls_{lines}_lines_ms"] = cs.gpu_ms(
+            lambda: wls.thomas_lines(la, lw, la, lam))
+    out["wls_fill_ms"] = cs.gpu_ms(lambda: wls.wls_fill(d, v, l))
+
+
+def postmatch_frames(out, cs, card, label):
+    """The facade at quick_profile() and the flagship frame with interp
+    and occlusion handling."""
+    from types import SimpleNamespace
+
+    import torch
+    from i3dr_stereo_tpu_torch.config.profile import quick_profile
+    from i3dr_stereo_tpu_torch.io.synthetic import layered_scene
+    from i3dr_stereo_tpu_torch.matchers.i3drsgm import I3DRSGM
+
+    sc = layered_scene(cs.H_FULL, cs.W_FULL, **cs.SCENE)
+    l = torch.tensor(sc.left, device=cs.DEVICE)
+    r = torch.tensor(sc.right, device=cs.DEVICE)
+    facade = I3DRSGM(profile=quick_profile(), device=cs.DEVICE)
+    pipe, left, right, _, _, _ = cs.flagship_pipe()
+    pipe.update_config(interp=True, occlusion_detection=True,
+                       occlusion_interp=True)
+    for name, process, a, b in (("facade_frame", facade.match, l, r),
+                                ("interp_frame", pipe.process, left, right)):
+        res = process(a, b)
+        out[f"{name}_digest"] = digest(res.disparity, res.valid)
+        out[f"{name}_ms"] = cs.gpu_ms(lambda: process(a, b), iters=10,
+                                      warmup=1)
+        prof = cs.phase_profile(SimpleNamespace(process=process), a, b, card,
+                                label=f"{label} {name}")
+        out[f"{name}_busy_ms"] = prof["busy_ms"]
+        out[f"{name}_idle_share"] = prof["idle_share"]
+        out[f"{name}_activities"] = prof["activities"]
+        for key, sym in POSTMATCH_SYMBOLS.items():
+            out[f"{name}_{key}_kernel_ms"] = sum(
+                ms for k, ms in prof["names_ms"].items() if sym in k)
+        del res
+    del facade, pipe
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     args = sys.argv[1:]
     sections = SECTIONS
@@ -408,6 +571,10 @@ def main() -> int:
                 print(f"  {k} {v:.4f}", flush=True)
     digests = [k for k in DIGESTS if k in results[0]]
     unequal = [k for k in digests if len({r[k] for r in results}) != 1]
+    for k in ROUNDING_DIGESTS:
+        if k in results[0]:
+            print(f"{k} (not held equal): "
+                  f"{', '.join(r[k] for r in results)}", flush=True)
     print(f"digests of all roots bit-equal ({', '.join(digests)}): "
           f"{not unequal}" + (f"; differ: {unequal}" if unequal else ""),
           flush=True)
