@@ -156,7 +156,31 @@ final result line) on the first thing that is wrong:
     and ``occlusion_interp``: ``wls_lines`` must launch, the gates,
     timings, peak, profile and the twins at 256x320; then with
     ``interpolate_missing=True`` alone (``gauss_rays`` must launch); then
-    the SGBM frame of 8 with ``interp=True`` (``wls_fill_lr``) once.
+    the SGBM frame of 8 with ``interp=True`` (``wls_fill_lr``) once;
+16. runs belief propagation's kernels against their twins, bit-equal
+    (``torch.equal``): ``bp_messages`` one iteration at 1x1024x1280x128
+    on the data cost of 8's scene (timed by events and back to back,
+    beside the twin and a ``torch.cummin`` form of the update with its
+    largest difference), 5 iterations at level 2's shape (1x128x256x320)
+    and 3 at 7 ragged shapes (odd H and W, D = 1, 3, 4, 16, 17, 64, 256,
+    B = 2, H = 1); ``bp_planes`` at 1x4x1024x1280 (timed) and at 6 ragged
+    shapes (K = 1, 2, 3, 4, 7, 16); then drives the BP frame and the
+    CSBP frame (8's scene, raw uint8, rectified, the BP / CSBP defaults
+    at 128 disparities) through ``StereoPipeline(device="cuda")``: every
+    kernel of the path must launch (``remap`` and ``bp_messages``; CSBP
+    also ``bp_planes`` and ``speckle_ccl``), density > 0.5 and median
+    error < 0.5 px (the reference's tests/test_matchers.py gates),
+    ms/frame, ``create_matcher().match`` equal to the pipeline's
+    disparities, peak memory, the 5-frame profile and the matcher through
+    the twins at 256x320; then ``create_matcher`` with SGBM at
+    ``downsample_scale=0.5`` at 1280x1024: a (1024, 1280) result,
+    density > 0.5 and median error < 1.0 px (the reference's
+    test_downsample_scale gates), timed beside the full-resolution
+    matcher.
+
+``python3 chip_smoke.py --only bp`` (any ``phase_*`` names, comma
+separated) builds the kernels and runs those phases alone: no kernels
+line and no result line.
 
 Each kernel's entry also carries its bound (the least time the card could
 take: bytes moved once over 3.35 TB/s, or operations over 67 TFLOP/s with
@@ -230,6 +254,12 @@ SOURCES = {
                    "i3dr_stereo_tpu/ops/gauss_interp.py:38"),
     "wls_lines": ("i3dr_stereo_tpu_torch/csrc/wls_lines.cu",
                   "i3dr_stereo_tpu/ops/wls.py:32"),
+    # BP's two message updates: XLA in the reference (lax.scan and
+    # fori_loop), no pallas_call
+    "bp_messages": ("i3dr_stereo_tpu_torch/csrc/bp_messages.cu",
+                    "i3dr_stereo_tpu/matchers/bp.py:42,75"),
+    "bp_planes": ("i3dr_stereo_tpu_torch/csrc/bp_planes.cu",
+                  "i3dr_stereo_tpu/matchers/bp.py:122"),
 }
 # the kernels of each main path: the flagship frame, the SGBM frame
 FLAGSHIP_KERNELS = ("census_transform", "census_cost", "sgm_sweep",
@@ -253,7 +283,8 @@ KERNEL_SYMBOLS = ("census_cost_kernel", "sgm_sweep_kernel",
                   "sgm_volume_kernel",
                   "census_fwd_kernel", "census32_kernel", "bt_fwd_kernel",
                   "census_fixed_kernel", "census_any_kernel",
-                  "gauss_rays_kernel", "wls_lines_kernel")
+                  "gauss_rays_kernel", "wls_lines_kernel",
+                  "bp_messages_kernel", "bp_planes_kernel")
 # accuracy_bench.py:sgbm_1280's scene and size
 H_SGBM, W_SGBM = 1024, 1280
 SGBM_SCENE = dict(max_disp=120, background_disp=8, layers=5, seed=21)
@@ -1818,9 +1849,11 @@ def phase_fused(stats, card):
 # phases 10 - 12: the lean frames and the direct 256-disparity chain
 # ---------------------------------------------------------------------------
 
-def drive_frame(pipe, left, right, sc, kernels, label, stats, record=()):
+def drive_frame(pipe, left, right, sc, kernels, label, stats, record=(),
+                max_med=MAX_MEDIAN_ERR):
     """One counted frame of ``pipe``: every kernel of ``kernels`` must
-    launch, outputs finite, the accuracy gate. Returns the result."""
+    launch, outputs finite, the accuracy gate (median error below
+    ``max_med``, density > 0.5). Returns the result."""
     from i3dr_stereo_tpu_torch import _build
 
     pipe.process(left, right)  # warm-up
@@ -1850,8 +1883,7 @@ def drive_frame(pipe, left, right, sc, kernels, label, stats, record=()):
           f"{both.sum() / sc.valid.sum():.4f}, median |d - GT| {med:.4f} px",
           flush=True)
     check(density > 0.5, f"{label}: density {density} too low")
-    check(med < MAX_MEDIAN_ERR, f"{label}: median error {med} >= "
-          f"{MAX_MEDIAN_ERR}")
+    check(med < max_med, f"{label}: median error {med} >= {max_med}")
     return res
 
 
@@ -2323,6 +2355,229 @@ def phase_interp(stats, card):
 
 
 
+# ---------------------------------------------------------------------------
+# phase 16: belief propagation (BP, CSBP) and the downsampled SGBM frame
+# ---------------------------------------------------------------------------
+
+# the gates every backend meets in the reference's tests/test_matchers.py
+BP_MAX_MEDIAN_ERR = 0.5
+DOWNSAMPLED_MAX_MEDIAN_ERR = 1.0   # its test_downsample_scale
+BP_KERNELS = ("remap", "bp_messages")
+CSBP_KERNELS = ("remap", "bp_messages", "bp_planes", "speckle_ccl")
+
+
+def dt_cummin(h, jump, max_disc):
+    """The distance transform of ``bp_messages`` written with
+    ``torch.cummin`` over d (a yardstick: it rounds otherwise, each
+    candidate's ``jump * |d - d'|`` added once)."""
+    D = h.shape[-3]
+    ramp = jump * torch.arange(D, device=h.device, dtype=h.dtype)[:, None,
+                                                                   None]
+    f = torch.cummin(h - ramp, dim=-3).values + ramp
+    b = torch.cummin((f + ramp).flip(-3), dim=-3).values.flip(-3) - ramp
+    return torch.minimum(b, h.amin(-3, keepdim=True) + max_disc)
+
+
+def bp_iterate_cummin(data, msgs, jump, max_disc):
+    """One message update with ``dt_cummin`` and ``torch.mean``."""
+    from i3dr_stereo_tpu_torch.matchers import bp
+
+    out = dt_cummin(bp._excluding(data, bp._incoming(msgs)), jump, max_disc)
+    return out - out.mean(2, keepdim=True)
+
+
+def compare_bp(bp, data, msgs, iters, label, dvals=None):
+    """The kernel against its twin: bit-equal messages (torch.equal)."""
+    if dvals is None:
+        k = bp.bp_iterate(data, msgs, iters, 1.0, 1.7)
+        p = bp.bp_iterate(data, msgs, iters, 1.0, 1.7, plain=True)
+        name = "bp_messages"
+    else:
+        k = bp.bp_iterate_planes(data, dvals, msgs, iters, 1.0, 1.7)
+        p = bp.bp_iterate_planes(data, dvals, msgs, iters, 1.0, 1.7,
+                                 plain=True)
+        name = "bp_planes"
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(k).all()), f"{name} {label}: not finite")
+    check(torch.equal(k, p), f"{name} {label}: differs from the twin (max "
+          f"{(k - p).abs().max().item():.3g})")
+    return k
+
+
+def bp_pipe(alg):
+    """The SGBM frame's scene and rig (raw uint8, rectified) with the BP
+    or CSBP defaults at 128 disparities."""
+    from i3dr_stereo_tpu_torch.config import params
+
+    pipe, left, right, sc, _, _ = sgbm_pipe()
+    pipe.config = cfg = params.ALGORITHM_DEFAULTS[alg].replace(
+        disparity_range=128)
+    return pipe, left, right, sc, cfg
+
+
+def phase_bp(stats, card):
+    """``bp_messages`` and ``bp_planes`` against their twins, then the BP
+    and CSBP frames and the downsampled SGBM frame."""
+    from i3dr_stereo_tpu_torch import _build
+    from i3dr_stereo_tpu_torch.config import params
+    from i3dr_stereo_tpu_torch.io.synthetic import layered_scene
+    from i3dr_stereo_tpu_torch.matchers import base, bp
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    sc = layered_scene(H_SGBM, W_SGBM, **SGBM_SCENE)
+    l = torch.tensor(sc.left, device=dev)[None]
+    r = torch.tensor(sc.right, device=dev)[None]
+
+    # --- bp_messages: level 0 of the BP frame, one iteration ---------------
+    st = stats["bp_messages"]
+    data = bp.data_cost(l, r, 0, 128)
+    msgs = 0.3 * torch.randn((4,) + data.shape, device=dev, generator=gen)
+    k = compare_bp(bp, data, msgs, 1, "1x1024x1280x128, one iteration")
+    st["ms"] = gpu_ms(lambda: bp.bp_iterate(data, msgs, 1, 1.0, 1.7),
+                      iters=5)
+    st["back_to_back_ms"] = back_to_back_ms(
+        lambda: bp.bp_iterate(data, msgs, 1, 1.0, 1.7), iters=10, warmup=2)
+    st["plain_ms"] = gpu_ms(
+        lambda: bp.bp_iterate(data, msgs, 1, 1.0, 1.7, plain=True), iters=1,
+        warmup=0)
+    st["cummin_ms"] = gpu_ms(lambda: bp_iterate_cummin(data, msgs, 1.0, 1.7),
+                             iters=5)
+    st["cummin_max_abs_err"] = (bp_iterate_cummin(data, msgs, 1.0, 1.7)
+                                - k).abs().max().item()
+    # data and 4 message planes read, 4 written; ~30 operations a pixel
+    # and disparity
+    set_bound(stats, "bp_messages", 9 * data.numel() * 4,
+              30 * data.numel())
+    print(f"bp_messages 1x{H_SGBM}x{W_SGBM}x128, one iteration [{card}]: "
+          f"bit-equal; {st['ms']:.4f} ms by events, "
+          f"{st['back_to_back_ms']:.4f} ms back to back (bound "
+          f"{st['bound_ms']:.4f} ms by {st['bound_by']}; plain "
+          f"{st['plain_ms']:.2f} ms; the torch.cummin form "
+          f"{st['cummin_ms']:.3f} ms, max |diff| "
+          f"{st['cummin_max_abs_err']:.3g}; no PyTorch call computes it)",
+          flush=True)
+    del k
+    # five iterations at level 2's shape
+    d2 = bp._pool2(bp._pool2(data))
+    m2 = 0.3 * torch.randn((4,) + d2.shape, device=dev, generator=gen)
+    compare_bp(bp, d2, m2, 5, f"{tuple(d2.shape)}, 5 iterations")
+    ms5 = gpu_ms(lambda: bp.bp_iterate(d2, m2, 5, 1.0, 1.7), iters=5)
+    print(f"bp_messages 5 iterations at level 2 {tuple(d2.shape)} [{card}]: "
+          f"bit-equal, {ms5:.4f} ms", flush=True)
+    del data, msgs
+    ragged = ((2, 4, 37, 131), (1, 16, 9, 33), (2, 17, 23, 45),
+              (1, 64, 31, 129), (1, 256, 7, 131), (1, 1, 5, 5),
+              (1, 3, 1, 300))
+    for shape in ragged:
+        dd = torch.rand(shape, device=dev, generator=gen) * 0.7
+        mm = 0.3 * torch.randn((4,) + shape, device=dev, generator=gen)
+        compare_bp(bp, dd, mm, 3, f"{shape}")
+    print(f"bp_messages 3 iterations at {len(ragged)} ragged shapes "
+          f"{ragged}: bit-equal", flush=True)
+
+    # --- bp_planes: K = 4 at 1x1024x1280, then ragged -----------------------
+    st = stats["bp_planes"]
+    K = 4
+    dk = torch.rand((1, K, H_SGBM, W_SGBM), device=dev, generator=gen) * 0.7
+    dv = torch.randint(0, 128, dk.shape, device=dev, generator=gen).float()
+    mk = 0.3 * torch.randn((4,) + dk.shape, device=dev, generator=gen)
+    compare_bp(bp, dk, mk, 1, f"1x{K}x{H_SGBM}x{W_SGBM}", dvals=dv)
+    st["ms"] = gpu_ms(lambda: bp.bp_iterate_planes(dk, dv, mk, 1, 1.0, 1.7))
+    st["back_to_back_ms"] = back_to_back_ms(
+        lambda: bp.bp_iterate_planes(dk, dv, mk, 1, 1.0, 1.7), iters=20)
+    st["plain_ms"] = gpu_ms(
+        lambda: bp.bp_iterate_planes(dk, dv, mk, 1, 1.0, 1.7, plain=True),
+        iters=1, warmup=0)
+    # data and candidates, 4 message planes in, 4 out; per pixel and
+    # direction K^2 (sub, abs, mul, min, add, min) and the mean
+    set_bound(stats, "bp_planes", 10 * dk.numel() * 4,
+              4 * 6 * K * dk.numel())
+    print(f"bp_planes 1x{K}x{H_SGBM}x{W_SGBM} [{card}]: bit-equal; "
+          f"{st['ms']:.4f} ms by events, {st['back_to_back_ms']:.4f} ms "
+          f"back to back (bound {st['bound_ms']:.4f} ms by "
+          f"{st['bound_by']}; plain {st['plain_ms']:.2f} ms; no PyTorch "
+          f"call computes it)", flush=True)
+    ragged = ((2, 2, 37, 131), (1, 3, 9, 33), (1, 7, 23, 45),
+              (1, 16, 31, 129), (2, 4, 1, 300), (1, 1, 4, 4))
+    for shape in ragged:
+        dd = torch.rand(shape, device=dev, generator=gen) * 0.7
+        vv = torch.randint(0, 300, shape, device=dev, generator=gen).float()
+        mm = 0.3 * torch.randn((4,) + shape, device=dev, generator=gen)
+        compare_bp(bp, dd, mm, 3, f"{shape}", dvals=vv)
+    print(f"bp_planes 3 iterations at {len(ragged)} ragged shapes {ragged}: "
+          f"bit-equal", flush=True)
+    del dk, dv, mk
+    torch.cuda.empty_cache()
+
+    # --- the BP and CSBP frames -------------------------------------------
+    small = layered_scene(256, 320, max_disp=40, seed=2)
+    ls = torch.tensor(small.left, device=dev)
+    rs = torch.tensor(small.right, device=dev)
+    for alg, kernels in ((params.Algorithm.BP_GPU, BP_KERNELS),
+                         (params.Algorithm.CSBP_GPU, CSBP_KERNELS)):
+        pipe, left, right, psc, cfg = bp_pipe(alg)
+        label = f"{alg.name} frame"
+        torch.cuda.reset_peak_memory_stats()
+        res = drive_frame(pipe, left, right, psc, kernels, label, stats,
+                          max_med=BP_MAX_MEDIAN_ERR)
+        if alg == params.Algorithm.BP_GPU:
+            stats["bp_messages"]["launches"] = _build.LAUNCHES["bp_messages"]
+        else:
+            stats["bp_planes"]["launches"] = _build.LAUNCHES["bp_planes"]
+        frame_ms = gpu_ms(lambda: pipe.process(left, right), iters=5,
+                          warmup=0)
+        m = base.create_matcher(cfg, device=DEVICE)
+        rl, rr = res.rect_left, res.rect_right
+        match_ms = gpu_ms(lambda: m.match(rl, rr), iters=5, warmup=0)
+        mres = m.match(rl, rr)
+        # the pipeline's mask is the matcher's less its depth-range clamp
+        check(torch.equal(mres.disparity, res.disparity)
+              and not bool((res.valid & ~mres.valid).any()),
+              f"{label}: create_matcher().match differs from the pipeline")
+        print(f"timing [{card}]: {label} (raw u8 -> rectify -> "
+              f"{alg.name} {cfg.disparity_range}d, {cfg.bp_levels} levels x "
+              f"{cfg.bp_iters} iterations -> depth, cloud) {frame_ms:.3f} "
+              f"ms/frame, create_matcher().match {match_ms:.3f} ms (equal "
+              f"to the pipeline's), peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB at "
+              f"{W_SGBM}x{H_SGBM}", flush=True)
+        phase_profile(pipe, left, right, card, label=label)
+        scfg = cfg.replace(disparity_range=64)
+        check_twins(
+            bp.belief_propagation_match(
+                ls, rs, scfg, constant_space=alg == params.Algorithm.CSBP_GPU),
+            bp.belief_propagation_match(
+                ls, rs, scfg, constant_space=alg == params.Algorithm.CSBP_GPU,
+                plain=True), label)
+        del pipe, res, m, mres
+        torch.cuda.empty_cache()
+
+    # --- the downsampled SGBM frame ---------------------------------------
+    cfg = sgbm_cfg(params).replace(downsample_scale=0.5)
+    m = base.create_matcher(cfg, device=DEVICE)
+    lf, rf = l[0], r[0]
+    res = m.match(lf, rf)
+    torch.cuda.synchronize()
+    d, v = res.disparity.cpu().numpy(), res.valid.cpu().numpy()
+    check(d.shape == (H_SGBM, W_SGBM) and v.shape == d.shape,
+          f"downsampled SGBM: output shape {d.shape}")
+    check(bool(np.isfinite(d[v]).all()), "downsampled SGBM: not finite")
+    both = v & sc.valid
+    density = float(v.mean())
+    med = float(np.median(np.abs(d - sc.disparity)[both]))
+    ms = gpu_ms(lambda: m.match(lf, rf), iters=5, warmup=0)
+    full_ms = gpu_ms(lambda: base.create_matcher(
+        sgbm_cfg(params), device=DEVICE).match(lf, rf), iters=5, warmup=1)
+    print(f"downsampled SGBM frame (downsample_scale 0.5, "
+          f"create_matcher().match, {W_SGBM}x{H_SGBM} in and out) [{card}]: "
+          f"density {density:.4f}, median |d - GT| {med:.4f} px, {ms:.3f} "
+          f"ms (full resolution {full_ms:.3f} ms)", flush=True)
+    check(density > 0.5, f"downsampled SGBM: density {density}")
+    check(med < DOWNSAMPLED_MAX_MEDIAN_ERR,
+          f"downsampled SGBM: median error {med}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device (torch.cuda.is_available() is false)",
@@ -2350,6 +2605,13 @@ def main() -> int:
     stats = {k: {"err": 0.0, "ms": None, "plain_ms": None, "launches": 0,
                  "bound_ms": None, "bound_by": None, "library_ms": None}
              for k in SOURCES}
+    if "--only" in sys.argv:
+        # a quick look at some phases: no kernels line, no result line
+        for name in sys.argv[sys.argv.index("--only") + 1].split(","):
+            globals()[f"phase_{name}"](stats, card)
+        print(f"--only: done in {time.perf_counter() - t_start:.1f} s",
+              flush=True)
+        return 0
     phase_popc_rate(card)
     phase_kernels(stats, card)
     phase_profile(*phase_main_path(stats, card), card)
@@ -2366,6 +2628,7 @@ def main() -> int:
     phase_postmatch(stats, card)
     phase_facade(stats, card)
     phase_interp(stats, card)
+    phase_bp(stats, card)
     print(f"whole run {time.perf_counter() - t_start:.1f} s", flush=True)
 
     for k, st in stats.items():

@@ -39,7 +39,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LAUNCHES = {"census_cost": 0, "sgm_sweep": 0, "sgm_sweep_wta": 0,
             "row_gather": 0, "remap": 0, "speckle_ccl": 0, "sgm_volume": 0,
             "fused_census_fwd": 0, "fused_bt_fwd": 0, "census_transform": 0,
-            "gauss_rays": 0, "wls_lines": 0}
+            "gauss_rays": 0, "wls_lines": 0, "bp_messages": 0,
+            "bp_planes": 0}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _L = ctypes.c_longlong
@@ -84,6 +85,10 @@ _SIGNATURES = {
     # stream
     "i3dr_wls_lines": (_P, _P, _P, _P, _I, _I, _I, _L, _L, _L, _L, _L, _L, _F,
                        _P),
+    # data, msgs, out, B, D, H, W, jump, max_disc, inv_d, stream
+    "i3dr_bp_messages": (_P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _P),
+    # data, dvals, msgs, out, B, K, H, W, jump, max_disc, inv_k, stream
+    "i3dr_bp_planes": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _P),
     # out (uint32, blocks * 256), blocks, iters, stream: the popcount-rate
     # probe (blocks * 256 * iters * 8 popcounts); no kernel of any path
     "i3dr_popc_probe": (_P, _I, _I, _P),

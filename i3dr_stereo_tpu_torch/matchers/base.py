@@ -20,6 +20,8 @@ from i3dr_stereo_tpu_torch.config.params import (
     MatcherConfig,
 )
 from i3dr_stereo_tpu_torch.core.frame import to_mono_f32
+from i3dr_stereo_tpu_torch.ops.resize import resize_cubic, resize_nearest
+from i3dr_stereo_tpu_torch.ops.wls import div_const
 
 NODATA = -10000.0    # I3DRSGM nodata convention (I3DRSGM.cpp:142-145)
 MISSING_Z = 10000.0  # generate_disparity.cpp MISSING_Z
@@ -50,6 +52,29 @@ class MatchResult:
     def with_nodata(self) -> torch.Tensor:
         """float32 disparity with invalid = -10000 (I3DRSGM convention)."""
         return torch.where(self.valid, self.disparity, NODATA)
+
+
+def _downsample(img: torch.Tensor, scale: float) -> torch.Tensor:
+    """The cubic resize of AbstractStereoMatcher::setImages
+    (abstractStereoMatcher.cpp:9-30, INTER_CUBIC by downsample_scale), as
+    the reference computes it (``jax.image.resize(..., "cubic")``)."""
+    if scale == 1.0:
+        return img
+    H, W = img.shape[-2:]
+    return resize_cubic(img, int(round(H * scale)), int(round(W * scale)))
+
+
+def _upsample_disparity(res: MatchResult, out_hw, scale: float
+                        ) -> MatchResult:
+    """Invert the downsample: the disparity and the valid mask back to
+    ``out_hw`` by the nearest resize, the disparity divided by the scale
+    (a product with its float32 reciprocal, as XLA computes the
+    reference's division by a constant)."""
+    if scale == 1.0:
+        return res
+    d = resize_nearest(res.disparity, *out_hw)
+    v = resize_nearest(res.valid.to(torch.float32), *out_hw) > 0.5
+    return MatchResult(disparity=div_const(d, scale), valid=v)
 
 
 class StereoMatcher:
@@ -88,17 +113,21 @@ class StereoMatcher:
     def match(self, left, right) -> MatchResult:
         """(H, W) or (B, H, W) images (mono or BGR, uint8 or float; numpy
         or tensors) -> left-anchored MatchResult on the matcher's
-        device."""
+        device. With ``downsample_scale != 1`` both images are resized
+        first by the reference's antialiased cubic resize (to
+        ``round(H * scale)`` x ``round(W * scale)``), and the result comes
+        back to the input's size by the nearest resize, the disparity
+        divided by the scale."""
         from i3dr_stereo_tpu_torch.matchers.registry import MATCHER_REGISTRY
 
         cfg = self._config
-        if cfg.downsample_scale != 1.0:
-            raise NotImplementedError(
-                "downsample_scale != 1 (the reference's cubic resize) is "
-                "not ported yet (ROADMAP.md Queue 1 item 5)")
-        return MATCHER_REGISTRY[cfg.algorithm](
-            to_mono_f32(self._input(left)), to_mono_f32(self._input(right)),
-            cfg, lean=self.lean)
+        scale = cfg.downsample_scale
+        li = to_mono_f32(self._input(left))
+        ri = to_mono_f32(self._input(right))
+        res = MATCHER_REGISTRY[cfg.algorithm](
+            _downsample(li, scale), _downsample(ri, scale), cfg,
+            lean=self.lean)
+        return _upsample_disparity(res, li.shape[-2:], scale)
 
     # reference-compatible aliases (abstractStereoMatcher.h)
     forward_match = match

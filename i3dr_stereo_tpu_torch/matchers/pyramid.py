@@ -68,6 +68,7 @@ from i3dr_stereo_tpu_torch.ops.gauss_interp import gauss_interpolate
 from i3dr_stereo_tpu_torch.ops.median import median3x3, median3x3_masked
 from i3dr_stereo_tpu_torch.ops.occlusion import (detect_occlusions,
                                                  fill_occlusions)
+from i3dr_stereo_tpu_torch.ops.resize import resize_nearest
 from i3dr_stereo_tpu_torch.ops.sgm import DIRECTIONS_4, DIRECTIONS_8
 from i3dr_stereo_tpu_torch.ops.sgm_fused_t import (
     census_sgm_wta,
@@ -90,23 +91,9 @@ def _downsample2(img: torch.Tensor) -> torch.Tensor:
     return x * 0.25
 
 
-def _nearest_index(n_out: int, n_in: int, device) -> torch.Tensor:
-    """Source index of ``jax.image.resize(..., "nearest")``: half-pixel
-    centres, floor((i + 0.5) * n_in / n_out) evaluated in float32 exactly
-    as the reference does (the same index as torch's "nearest-exact")."""
-    pos = (torch.arange(n_out, dtype=torch.float32, device=device) + 0.5)
-    return torch.floor(pos * n_in / n_out).long()
-
-
-def _resize_nearest(x: torch.Tensor, H: int, W: int) -> torch.Tensor:
-    ys = _nearest_index(H, x.shape[-2], x.device)
-    xs = _nearest_index(W, x.shape[-1], x.device)
-    return x[..., ys[:, None], xs[None, :]]
-
-
 def _upsample2_disp(d: torch.Tensor, H: int, W: int) -> torch.Tensor:
     """Upsample a disparity map to (H, W) and double its values."""
-    return 2.0 * _resize_nearest(d, H, W)
+    return 2.0 * resize_nearest(d, H, W)
 
 
 def profile_from_config(cfg: MatcherConfig) -> SGMProfile:
@@ -253,7 +240,7 @@ def pyramid_sgm_match(left, right, cfg: MatcherConfig,
     while cur_level > 0:
         Hn, Wn = pyr_l[cur_level - 1].shape[1:]
         disp = _upsample2_disp(disp, Hn, Wn)
-        valid = _resize_nearest(valid, Hn, Wn)
+        valid = resize_nearest(valid, Hn, Wn)
         cur_level -= 1
 
     if not batched:

@@ -8,7 +8,8 @@
 | 2    | MatcherI3DRSGM (Phobos engine)     | i3drsgm_match — census pyramid SGM, |
 |      |                                    | or dense census SGM (D <= 64)       |
 | 3    | MatcherOpenCVBlockCuda             | bm_match                            |
-| 4, 5 | BP / CSBP (cv::cuda)               | not ported: ROADMAP.md Queue 1 item 4 |
+| 4    | MatcherOpenCVBPCuda                | bp_match — hierarchical min-sum BP  |
+| 5    | MatcherOpenCVCSBPCuda              | csbp_match — constant-space BP      |
 
 Every backend takes (H, W) or (B, H, W) float32 images and returns a
 MatchResult. The SGM of SGBM and dense I3DRSGM is
@@ -24,7 +25,10 @@ same on both, as in the reference. The hole-filling options follow the
 reference: ``interp`` is the backward-match-driven WLS fill
 (:func:`_interp_backward_wls`) in BM and SGBM, ``interpolate_missing``
 the plain WLS fill, and dense I3DRSGM takes the plain WLS fill for
-either (the ``wls_lines`` kernel on a CUDA tensor).
+either (the ``wls_lines`` kernel on a CUDA tensor). BP and CSBP are
+:mod:`~i3dr_stereo_tpu_torch.matchers.bp` (kernels ``bp_messages`` and
+``bp_planes`` on a CUDA tensor); they have no SGM, so ``lean`` changes
+nothing there.
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ from i3dr_stereo_tpu_torch.config.params import (
     MatcherConfig,
 )
 from i3dr_stereo_tpu_torch.matchers.base import MatchResult
+from i3dr_stereo_tpu_torch.matchers.bp import belief_propagation_match
 from i3dr_stereo_tpu_torch.matchers.pyramid import pyramid_sgm_match
 from i3dr_stereo_tpu_torch.ops.census import (census_cost_volume,
                                             census_transform_pair)
@@ -249,11 +254,19 @@ def i3drsgm_match(left, right, cfg: MatcherConfig, *,
     return _result(disp, valid, batched)
 
 
-def _not_ported(item: str):
-    def match(left, right, cfg: MatcherConfig, *, lean: bool = False):
-        raise NotImplementedError(
-            f"{cfg.algorithm.name} is not ported yet (ROADMAP.md {item})")
-    return match
+def bp_match(left, right, cfg: MatcherConfig, *,
+             lean: bool = False) -> MatchResult:
+    """Hierarchical min-sum belief propagation
+    (cv::cuda::StereoBeliefPropagation analog, matcherOpenCVBPCuda.cpp)."""
+    return belief_propagation_match(left, right, cfg, constant_space=False)
+
+
+def csbp_match(left, right, cfg: MatcherConfig, *,
+               lean: bool = False) -> MatchResult:
+    """Constant-space BP (cv::cuda::StereoConstantSpaceBP analog,
+    matcherOpenCVCSBPCuda.cpp): coarse to fine on K candidate planes a
+    pixel, then the speckle filter."""
+    return belief_propagation_match(left, right, cfg, constant_space=True)
 
 
 MATCHER_REGISTRY = {
@@ -261,8 +274,8 @@ MATCHER_REGISTRY = {
     Algorithm.SGBM: sgbm_match,
     Algorithm.I3DRSGM: i3drsgm_match,
     Algorithm.BM_GPU: bm_match,
-    Algorithm.BP_GPU: _not_ported("Queue 1 item 4"),
-    Algorithm.CSBP_GPU: _not_ported("Queue 1 item 4"),
+    Algorithm.BP_GPU: bp_match,
+    Algorithm.CSBP_GPU: csbp_match,
 }
 
 

@@ -274,13 +274,17 @@ def test_unported_features_raise():
     I3DRSGM's ``interp`` (the WLS fill; every pixel also within 2e-3 px
     of a float64 witness of it). Rectification is off on both
     sides (XLA's CPU remap fuses multiply-adds, which
-    tests/test_torch_pipeline_full.py covers). BP / CSBP still raise,
-    naming their ROADMAP item."""
+    tests/test_torch_pipeline_full.py covers). BP / CSBP, which raised
+    until they were ported, run through the same pipelines'
+    ``update_config`` and match the reference off its near ties (read
+    off the port's beliefs, as tests/test_torch_bp.py does for the jitted
+    reference)."""
     from i3dr_stereo_tpu.pipeline.stereo_pipeline import (
         StereoPipeline as RefPipeline)
     from i3dr_stereo_tpu_torch.matchers import registry
     from i3dr_stereo_tpu_torch.matchers.registry import MATCHER_REGISTRY
     from i3dr_stereo_tpu_torch.pipeline.stereo_pipeline import StereoPipeline
+    from test_torch_bp import _assert_matches, _near, _port_belief_recorder
     from test_torch_postmatch import check_wls_witness, record_wls
 
     sc = layered_scene(48, 64, max_disp=12, seed=3)
@@ -328,9 +332,21 @@ def test_unported_features_raise():
                 check_wls_witness(d, calls, d_ref)
             else:
                 assert not calls
-    img = np.zeros((48, 64), np.float32)
-    for alg, fn in MATCHER_REGISTRY.items():
-        if alg in (params.Algorithm.BP_GPU, params.Algorithm.CSBP_GPU):
-            with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-                fn(img, img, params.ALGORITHM_DEFAULTS[alg])
+        for alg in (params.Algorithm.BP_GPU, params.Algorithm.CSBP_GPU):
+            pipe.update_config(algorithm=alg, disparity_range=16)
+            ref.update_config(algorithm=ref_params.Algorithm(alg.value),
+                              disparity_range=16)
+            assert MATCHER_REGISTRY[alg].__name__ in ("bp_match",
+                                                      "csbp_match")
+            rec = {}
+            with pytest.MonkeyPatch.context() as mp:
+                _port_belief_recorder(mp, rec)
+                got = pipe.process(sc.left, sc.right)
+            want = ref.process(sc.left, sc.right)
+            assert got.valid.float().mean() > 0.5
+            _assert_matches(got.disparity.numpy(), got.valid.numpy(),
+                            dict(d=np.asarray(want.disparity),
+                                 v=np.asarray(want.valid),
+                                 near=_near(rec["belief"])),
+                            alg == params.Algorithm.CSBP_GPU)
 

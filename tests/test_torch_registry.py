@@ -165,7 +165,11 @@ def test_matcher_update_and_unported_options(tpu_branch):
     px, XLA's FMAs in the WLS solver, where the reference is finite: its
     WLS can divide by a zero pivot, see tests/test_torch_postmatch.py;
     everywhere within 2e-3 px of a float64 witness of the fill);
-    ``downsample_scale`` and BP / CSBP still raise, naming their items."""
+    ``downsample_scale`` (the cubic resize and back) and BP / CSBP, which
+    once raised, run and give the reference's results (BP and CSBP at
+    16x32, D = 16, bit-equal there; tests/test_torch_bp.py and
+    tests/test_torch_resize.py hold them in full)."""
+    from i3dr_stereo_tpu.matchers.base import create_matcher as ref_matcher
     from i3dr_stereo_tpu.matchers.registry import compute_disparity as ref
     from test_torch_postmatch import check_wls_witness, record_wls
 
@@ -174,10 +178,15 @@ def test_matcher_update_and_unported_options(tpu_branch):
     m.update(p1=10.0, disparity_range=40)
     assert m.config.p1 == 10.0 and m.config.disparity_range == 48
     m.set_config(m.config.replace(downsample_scale=0.5))
-    img = np.zeros((H, W), np.float32)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        m.match(img, img)
     l, r = _scene((H, W), seed=4)
+    ref_cfg = ALGORITHM_DEFAULTS[Algorithm.SGBM].replace(
+        p1=10.0, disparity_range=40, downsample_scale=0.5)
+    assert config_from_reference(ref_cfg) == m.config
+    got, want = m.match(l, r), ref_matcher(ref_cfg).match(l, r)
+    assert got.disparity.shape == (H, W)
+    np.testing.assert_array_equal(got.valid.numpy(), np.asarray(want.valid))
+    np.testing.assert_array_equal(got.disparity.numpy(),
+                                  np.asarray(want.disparity))
     for alg in (Algorithm.SGBM, Algorithm.BM, Algorithm.I3DRSGM):
         cfg = ALGORITHM_DEFAULTS[alg].replace(pyramid=False,
                                               disparity_range=32,
@@ -198,9 +207,16 @@ def test_matcher_update_and_unported_options(tpu_branch):
         assert [c[0] for c in calls] == [
             "wls_fill" if alg == Algorithm.I3DRSGM else "wls_fill_lr"]
         check_wls_witness(d, calls, d_ref)
-    for alg in (params.Algorithm.BP_GPU, params.Algorithm.CSBP_GPU):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-            registry.compute_disparity(img, img, params.ALGORITHM_DEFAULTS[alg])
+    sc = layered_scene(16, 32, max_disp=12, seed=4)
+    for alg in (Algorithm.BP_GPU, Algorithm.CSBP_GPU):
+        cfg = ALGORITHM_DEFAULTS[alg].replace(disparity_range=16)
+        want = ref(sc.left, sc.right, cfg)
+        got = registry.compute_disparity(sc.left, sc.right,
+                                         config_from_reference(cfg))
+        np.testing.assert_array_equal(got.valid.numpy(),
+                                      np.asarray(want.valid))
+        np.testing.assert_array_equal(got.disparity.numpy(),
+                                      np.asarray(want.disparity))
 
 
 # ---------------------------------------------------------------------------
