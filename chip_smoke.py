@@ -37,7 +37,8 @@ final result line) on the first thing that is wrong:
      right one warped by the row gather, 2048x2560, 9x9) in one launch,
      timed; then windows 3x3, 9x9, 17x17, 5x7 and 61x61 (wider than its
      image on both axes), B = 2, images smaller than the window, 2-4 grey
-     levels, W = 2449, as a pair and as one image: bit-equal
+     levels, W = 2449, 9x9 at widths no multiple of its tiles (100, 131),
+     1-row and 1-column images, as a pair and as one image: bit-equal
      (``torch.equal``);
    - remap at 2448x2048 on the distorted rig of ``bench.py``
      (pipeline_batch), uint8 and float32 sources, cubic and linear,
@@ -162,8 +163,10 @@ final result line) on the first thing that is wrong:
     on the data cost of 8's scene (timed by events and back to back,
     beside the twin and a ``torch.cummin`` form of the update with its
     largest difference), 5 iterations at level 2's shape (1x128x256x320)
-    and 3 at 7 ragged shapes (odd H and W, D = 1, 3, 4, 16, 17, 64, 256,
-    B = 2, H = 1); ``bp_planes`` at 1x4x1024x1280 (timed) and at 6 ragged
+    and 3 at 13 ragged shapes (odd H and W; D = 1, 3, 4, 5, 8, 16, 17,
+    64, 256, and 446 / 447, 901 and 1300 on both sides of the cut between
+    its two kernels; B = 2, H = 1, W = 1); ``bp_planes`` at
+    1x4x1024x1280 (timed) and at 6 ragged
     shapes (K = 1, 2, 3, 4, 7, 16); then drives the BP frame and the
     CSBP frame (8's scene, raw uint8, rectified, the BP / CSBP defaults
     at 128 disparities) through ``StereoPipeline(device="cuda")``: every
@@ -284,7 +287,7 @@ KERNEL_SYMBOLS = ("census_cost_kernel", "sgm_sweep_kernel",
                   "census_fwd_kernel", "census32_kernel", "bt_fwd_kernel",
                   "census_fixed_kernel", "census_any_kernel",
                   "gauss_rays_kernel", "wls_lines_kernel",
-                  "bp_messages_kernel", "bp_planes_kernel")
+                  "bp_messages_", "bp_planes_kernel")
 # accuracy_bench.py:sgbm_1280's scene and size
 H_SGBM, W_SGBM = 1024, 1280
 SGBM_SCENE = dict(max_disp=120, background_disp=8, layers=5, seed=21)
@@ -345,6 +348,22 @@ def row_gather_entry(src, idx, q, radius, out):
             H, W, q.shape[1], q.shape[2], int(radius), stream)
     check(lib.i3dr_row_gather(*args) == 0, "i3dr_row_gather failed")
     return lambda: lib.i3dr_row_gather(*args)
+
+
+def census_pair_entry(a, b, hw, outs):
+    """A call of the census transform's C entry for a pair of contiguous
+    (B, H, W) images into ``outs`` (2, B, H, W, NW), no wrapper around
+    it; the call holds the tensors whose memory it reads and writes."""
+    from i3dr_stereo_tpu_torch import _build
+
+    check(a.is_contiguous() and b.is_contiguous() and outs.is_contiguous(),
+          "census_pair_entry takes contiguous tensors")
+    lib, stream = _build.library(), _build.stream_of(a)
+    args = (a.data_ptr(), b.data_ptr(), outs[0].data_ptr(),
+            outs[1].data_ptr(), *a.shape, *hw, stream)
+    check(lib.i3dr_census_transform(*args) == 0,
+          "i3dr_census_transform failed")
+    return lambda held=(a, b, outs): lib.i3dr_census_transform(*args)
 
 
 def gpu_times(fn, iters: int) -> list:
@@ -926,17 +945,25 @@ def phase_kernels(stats, card):
     phase_speckle(stats, sc, cfg)
 
 
-def phase_census(stats, card, sc, cfg):
+def phase_census(stats, card, sc=None, cfg=None):
     """census_transform vs its twin, bit-equal (``torch.equal``): level 0's
     two images (the left image and the warped right one, 9x9) in one
     launch, timed; then the windows 3x3, 9x9, 17x17, 5x7 and 61x61 (wider
     than its 9x50 image on both axes), B = 2, an image smaller than the
     window, 2-4 grey levels (ties), odd widths (2449) and a word with bit
-    31 set, as a pair and as one image."""
+    31 set, as a pair and as one image; the 9x9 instance also at widths
+    that are no multiple of its 32-column tile and at 1-row and 1-column
+    images. Level 0 is timed back to back through the C entry and through
+    the wrapper. ``sc`` and ``cfg`` default to the flagship scene and
+    config."""
+    from i3dr_stereo_tpu_torch.config import params
+    from i3dr_stereo_tpu_torch.io.synthetic import layered_scene
     from i3dr_stereo_tpu_torch.ops import block_gather as bg
     from i3dr_stereo_tpu_torch.ops.census import (census_transform,
                                                   census_transform_pair)
 
+    cfg = cfg or flagship_cfg(params)
+    sc = sc or layered_scene(H_FULL, W_FULL, **SCENE)
     dev = torch.device(DEVICE)
     st = stats["census_transform"]
     _, lp, rp, pred, q, _, _, _ = next(flagship_levels(cfg, sc))
@@ -958,11 +985,26 @@ def phase_census(stats, card, sc, cfg):
               n_pix * n_nb * 2)
     st["back_to_back_ms"] = back_to_back_ms(
         lambda: census_transform_pair(lp, rw, *hw), iters=20)
+    # back to back through the C entry too: the wrapper's host work and
+    # its 126 MB allocation a call are no part of the kernel
+    outs = torch.empty((2,) + cl.shape, dtype=torch.int32, device=dev)
+    st["entry_back_to_back_ms"] = back_to_back_ms(
+        census_pair_entry(lp.contiguous(), rw.contiguous(), hw, outs),
+        iters=20)
+    check(torch.equal(outs[0], cl) and torch.equal(outs[1], cr),
+          "census_transform's C entry differs from the wrapper")
+    del outs
     print(f"census_transform level 0 ({lp.shape[-1]}x{lp.shape[-2]}, both "
           f"images, 9x9) [{card}]: bit-equal, {st['ms']:.4f} ms by events "
           f"around one call, {st['back_to_back_ms']:.4f} ms a call back to "
-          f"back (bound {st['bound_ms']:.4f} ms, plain {st['plain_ms']:.1f} "
-          f"ms; no PyTorch call computes it)", flush=True)
+          f"back through the wrapper ({st['entry_back_to_back_ms']:.4f} "
+          f"through its C entry) (bound {st['bound_ms']:.4f} ms by "
+          f"{st['bound_by']}: "
+          f"{st['bound_ms'] / st['ms']:.0%} of it by events, "
+          f"{st['bound_ms'] / st['back_to_back_ms']:.0%} back to back, "
+          f"{st['bound_ms'] / st['entry_back_to_back_ms']:.0%} through the "
+          f"C entry; plain {st['plain_ms']:.1f} ms; no PyTorch call "
+          f"computes it)", flush=True)
     del cl, cr, pl, pr, lp, rp, rw
 
     rng = np.random.default_rng(11)
@@ -972,7 +1014,11 @@ def phase_census(stats, card, sc, cfg):
             ((2, 40, 131), (17, 17), None), ((1, 12, 21), (5, 7), 3),
             ((1, 5, 6), (9, 9), None), ((2, 17, 40), (9, 9), 4),
             ((1, 3, 4), (17, 17), 2), ((2, 16, 2449), (9, 9), None),
-            ((1, 24, 2449), (5, 7), None), ((1, 9, 50), (61, 61), 3)):
+            ((1, 24, 2449), (5, 7), None), ((1, 9, 50), (61, 61), 3),
+            ((2, 45, 100), (9, 9), None), ((2, 37, 131), (9, 9), 3),
+            ((2, 1, 200), (9, 9), None), ((1, 1, 37), (9, 9), None),
+            ((2, 70, 1), (9, 9), None), ((1, 33, 1), (9, 9), 2),
+            ((2, 40, 2560), (9, 9), None)):
         def image():
             x = (rng.integers(0, levels, (B, H, W)) if levels
                  else rng.uniform(0, 255, (B, H, W)))
@@ -990,7 +1036,9 @@ def phase_census(stats, card, sc, cfg):
         n_cases += 1
     print(f"census_transform at {n_cases} shapes (windows 3x3, 9x9, 17x17, "
           f"5x7, 61x61; B = 2; 5x6 and 3x4 under the window; 2-4 grey "
-          f"levels; W = 2449): bit-equal as a pair and as one image",
+          f"levels; W = 2449; 9x9 at W = 100, 131, 2560, 1-row images of "
+          f"200 and 37 columns, 1-column images of 70 and 33 rows): "
+          f"bit-equal as a pair and as one image",
           flush=True)
 
 
@@ -2450,9 +2498,12 @@ def phase_bp(stats, card):
     set_bound(stats, "bp_messages", 9 * data.numel() * 4,
               30 * data.numel())
     print(f"bp_messages 1x{H_SGBM}x{W_SGBM}x128, one iteration [{card}]: "
-          f"bit-equal; {st['ms']:.4f} ms by events, "
+          f"bit-equal (32-pixel strips, {bp.messages_shared(128)} bytes of "
+          f"dynamic shared memory a block); {st['ms']:.4f} ms by events, "
           f"{st['back_to_back_ms']:.4f} ms back to back (bound "
-          f"{st['bound_ms']:.4f} ms by {st['bound_by']}; plain "
+          f"{st['bound_ms']:.4f} ms by {st['bound_by']}: "
+          f"{st['bound_ms'] / st['ms']:.0%} of it by events, "
+          f"{st['bound_ms'] / st['back_to_back_ms']:.0%} back to back; plain "
           f"{st['plain_ms']:.2f} ms; the torch.cummin form "
           f"{st['cummin_ms']:.3f} ms, max |diff| "
           f"{st['cummin_max_abs_err']:.3g}; no PyTorch call computes it)",
@@ -2466,15 +2517,26 @@ def phase_bp(stats, card):
     print(f"bp_messages 5 iterations at level 2 {tuple(d2.shape)} [{card}]: "
           f"bit-equal, {ms5:.4f} ms", flush=True)
     del data, msgs
+    # both kernels messages_shared picks, on both sides of its cut (the
+    # strip kernel to D = 446, then the staging in device memory); D below
+    # and above the copies' 16 ahead; W no multiple of the strip, W = 1,
+    # H = 1, B = 2
     ragged = ((2, 4, 37, 131), (1, 16, 9, 33), (2, 17, 23, 45),
               (1, 64, 31, 129), (1, 256, 7, 131), (1, 1, 5, 5),
-              (1, 3, 1, 300))
+              (1, 3, 1, 300), (2, 446, 3, 37), (1, 447, 3, 45),
+              (2, 901, 2, 17), (1, 1300, 1, 3), (2, 8, 5, 1), (1, 5, 1, 1))
+    by_kernel = {}
     for shape in ragged:
         dd = torch.rand(shape, device=dev, generator=gen) * 0.7
         mm = 0.3 * torch.randn((4,) + shape, device=dev, generator=gen)
         compare_bp(bp, dd, mm, 3, f"{shape}")
-    print(f"bp_messages 3 iterations at {len(ragged)} ragged shapes "
-          f"{ragged}: bit-equal", flush=True)
+        kernel = "strip" if bp.messages_shared(shape[1]) else "staged"
+        by_kernel.setdefault(kernel, []).append(shape)
+    check(len(by_kernel) == 2, f"bp_messages: the ragged shapes ran "
+          f"{len(by_kernel)} of its 2 kernels")
+    print(f"bp_messages 3 iterations at {len(ragged)} ragged shapes: "
+          f"bit-equal; 32-pixel strips at {by_kernel['strip']}; staged in "
+          f"device memory at {by_kernel['staged']}", flush=True)
 
     # --- bp_planes: K = 4 at 1x1024x1280, then ragged -----------------------
     st = stats["bp_planes"]
@@ -2635,6 +2697,11 @@ def main() -> int:
         check(st["launches"] > 0, f"kernel {k} launched on no main path")
         check(None not in (st["ms"], st["plain_ms"], st["bound_ms"]),
               f"kernel {k} has an unmeasured number")
+    for k, st in stats.items():
+        b2b = st.get("back_to_back_ms")
+        print(f"{k}: {st['bound_ms'] / st['ms']:.0%} of its bound by events"
+              + (f", {st['bound_ms'] / b2b:.0%} back to back" if b2b
+                 else ""), flush=True)
     kernels = [{"name": k, "route": "cuda", "source": SOURCES[k][0],
                 "replaces": SOURCES[k][1], "launches": s["launches"],
                 "max_abs_err": s["err"], "ms": s["ms"],

@@ -85,8 +85,8 @@ _SIGNATURES = {
     # stream
     "i3dr_wls_lines": (_P, _P, _P, _P, _I, _I, _I, _L, _L, _L, _L, _L, _L, _F,
                        _P),
-    # data, msgs, out, B, D, H, W, jump, max_disc, inv_d, stream
-    "i3dr_bp_messages": (_P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _P),
+    # data, msgs, out, B, D, H, W, jump, max_disc, inv_d, shared, stream
+    "i3dr_bp_messages": (_P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _I, _P),
     # data, dvals, msgs, out, B, K, H, W, jump, max_disc, inv_k, stream
     "i3dr_bp_planes": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _P),
     # out (uint32, blocks * 256), blocks, iters, stream: the popcount-rate

@@ -32,7 +32,9 @@ The two message updates are kernels on a CUDA tensor and their plain
 torch twins on a CPU tensor (or with ``plain=True``):
 
 - :func:`bp_iterate` launches ``bp_messages`` (``csrc/bp_messages.cu``)
-  once an iteration; :func:`bp_iterate_plain` is its twin;
+  once an iteration, its scans kept in shared memory where
+  :func:`messages_shared` finds them room (D <= 446);
+  :func:`bp_iterate_plain` is its twin;
 - :func:`bp_iterate_planes` launches ``bp_planes`` (``csrc/bp_planes.cu``,
   K <= 16) once an iteration; :func:`bp_iterate_planes_plain` is its twin.
 
@@ -71,6 +73,12 @@ _DIRS = ((1, 0), (-1, 0), (0, 1), (0, -1))
 _OPP = tuple(i ^ 1 for i in range(4))
 
 PLANES_MAX = 16   # the bp_planes kernel's largest K (its planes in registers)
+# the dynamic shared memory a block may ask for on an H100 (sm_90); the
+# pixels of a bp_messages strip block and the disparities its copies run
+# ahead of its scan (STRIP and AHEAD in csrc/bp_messages.cu)
+SHARED_MAX = 232448
+MESSAGES_STRIP = 32
+MESSAGES_AHEAD = 16
 
 
 # ---------------------------------------------------------------------------
@@ -235,12 +243,27 @@ def _ping_pong(msgs: torch.Tensor, iters: int, launch) -> torch.Tensor:
     return src
 
 
+def messages_shared(D: int) -> int:
+    """The dynamic shared memory of a ``bp_messages`` block for D
+    disparities, from D alone, which also picks the kernel: a pixel takes
+    4 * (4 D + 2 AHEAD) bytes (its four forward scans and a ring of data
+    costs), so the strip kernel runs while a 32-pixel strip's fits
+    ``SHARED_MAX`` (D <= 446); beyond that the cut gives 0, the kernel
+    that stages the scans in device memory. On an H100 the strip kernel
+    is the faster of the two at every D up to the cut: 1.8-2.3x to D = 218
+    (two or three blocks an SM), 4.7-8.1 % from D = 219 (one block an SM;
+    ``kernel_probes/probe9.py --only cut``)."""
+    shared = 4 * (4 * D + 2 * MESSAGES_AHEAD) * MESSAGES_STRIP
+    return shared if shared <= SHARED_MAX else 0
+
+
 def bp_iterate(data: torch.Tensor, msgs: torch.Tensor, iters: int,
                jump: float, max_disc: float, *,
                plain: bool = False) -> torch.Tensor:
     """``iters`` synchronous min-sum updates of (4, B, D, H, W) messages
     over (B, D, H, W) data costs, any D >= 1. A CUDA tensor launches the
-    ``bp_messages`` kernel once an iteration (or raises); a CPU tensor, or
+    ``bp_messages`` kernel once an iteration, the one
+    :func:`messages_shared` picks from D (or raises); a CPU tensor, or
     ``plain=True``, runs :func:`bp_iterate_plain`."""
     if plain or data.device.type == "cpu":
         return bp_iterate_plain(data, msgs, iters, jump, max_disc)
@@ -248,12 +271,14 @@ def bp_iterate(data: torch.Tensor, msgs: torch.Tensor, iters: int,
     _build.require_cuda(data, msgs)
     B, D, H, W = data.shape
     inv_d = float(np.float32(1.0) / np.float32(D))
+    shared = messages_shared(D)
     stream = _build.stream_of(data)
 
     def launch(src, dst):
         _build.launch("i3dr_bp_messages", "bp_messages", data.device,
                       data.data_ptr(), src.data_ptr(), dst.data_ptr(), B, D,
-                      H, W, float(jump), float(max_disc), inv_d, stream)
+                      H, W, float(jump), float(max_disc), inv_d, shared,
+                      stream)
 
     return _ping_pong(msgs, iters, launch)
 

@@ -15,7 +15,7 @@ process of its own, builds its own kernels and prints one JSON line; the
 scene, the level-0 inputs, the timing and the profile window are
 ``chip_smoke.py``'s of this checkout, so only the package differs.
 
-Per ROOT, with the card's name and power limit, in twelve sections
+Per ROOT, with the card's name and power limit, in thirteen sections
 (``--only`` names those to run, comma-separated; all by default):
 
 - ``level0``: level 0 of the flagship pyramid (2448x2048 padded to
@@ -49,7 +49,8 @@ Per ROOT, with the card's name and power limit, in twelve sections
   image and the right one warped by the row gather, 2048x2560, 9x9)
   through ``census_transform_pair`` (``census_transform`` on each image
   where the checkout has no pair entry: the plain torch transform before
-  the kernel): ms (median of 10) and a digest of the words;
+  the kernel): ms (median of 10), ms a call of 20 back to back and a
+  digest of the words;
 - ``remap``: ``rectify_pair`` at 2448x2048 uint8 cubic on
   ``chip_smoke.py``'s distorted rig: ms (median of 10), ms a call of 20
   back to back and a digest of both outputs;
@@ -76,6 +77,14 @@ Per ROOT, with the card's name and power limit, in twelve sections
   digest, the largest difference from a float64 Thomas solve of the
   same system on the card; one line of 2448 alone and 64 such lines
   (the chain); ``wls_fill`` whole (6 launches);
+- ``bp``: ``bp_iterate`` one iteration at the BP frame's level 0
+  (1x1024x1280x128, that frame's data cost, messages from a seed): ms
+  (median of 5), ms a call of 10 back to back and a digest of the
+  messages; the BP and the CSBP frame (``chip_smoke.py:bp_pipe``: the
+  SGBM frame's scene and rig, raw uint8, the BP / CSBP defaults at 128
+  disparities): ms/frame (median of 5), the five-frame profile (busy,
+  idle share, activities, ``bp_messages`` and ``bp_planes`` time a
+  frame) and a digest of the disparity and valid mask;
 - ``postmatch_frames``: the engine facade at ``quick_profile()``
   (rectified float32 in) and the flagship frame with ``interp``,
   occlusion detection and fill: ms/frame (median of 10), the five-frame
@@ -117,15 +126,19 @@ BT_SYMBOLS = ("bt_fwd_kernel", "BtCost")
 TRANSFORM_SYMBOLS = ("census_fixed_kernel", "census_any_kernel")
 REMAP_SYMBOLS = ("remap_kernel",)
 POSTMATCH_SYMBOLS = {"gauss": "gauss_rays", "wls": "wls_lines"}
+# BP's kernels: every instance of bp_messages (one kernel in a parent,
+# bp_messages_kernel) and bp_planes
+BP_SYMBOLS = {"bp_messages": "bp_messages_", "bp_planes": "bp_planes_"}
 SECTIONS = ("level0", "lean_level0", "sgbm_aggregate", "speckle", "bt_fwd",
             "row_gather", "census", "remap", "frames", "gauss", "wls",
-            "postmatch_frames")
+            "postmatch_frames", "bp")
 DIGESTS = ("frame_digest", "lean_frame_digest", "sgbm_frame_digest",
            "lean_sgbm1_frame_digest", "level0_digest", "lean_level0_digest",
            "lean_level0_sgm_digest", "sgbm_aggregate_digest",
            "speckle_digest", "bt_fwd_int16_digest", "bt_fwd_float32_digest",
            "row_gather_digest", "census_digest", "remap_digest",
-           "gauss_digest", "facade_frame_digest")
+           "gauss_digest", "facade_frame_digest", "bp_messages_digest",
+           "bp_frame_digest", "csbp_frame_digest")
 # reported, not held equal across roots (see the docstring)
 ROUNDING_DIGESTS = ("wls_digest", "interp_frame_digest")
 
@@ -197,6 +210,8 @@ def measure(root: Path, sections) -> dict:
         torch.cuda.empty_cache()
     if "postmatch_frames" in sections:
         postmatch_frames(out, cs, card, root.name)
+    if "bp" in sections:
+        bp(out, cs, card, root.name)
     return out
 
 
@@ -353,6 +368,7 @@ def census(out, cs, cfg, sc):
             (lambda: (ce.census_transform(lp, *hw),
                       ce.census_transform(rw, *hw))))
     out["census_ms"] = cs.gpu_ms(call)
+    out["census_b2b_ms"] = cs.back_to_back_ms(call, iters=20)
     out["census_digest"] = digest(*call())
     del lp, rp, rw, pred
     torch.cuda.empty_cache()
@@ -535,6 +551,46 @@ def postmatch_frames(out, cs, card, label):
         del res
     del facade, pipe
     torch.cuda.empty_cache()
+
+
+def bp(out, cs, card, label):
+    """One BP iteration at level 0, then the BP and CSBP frames."""
+    import torch
+    from i3dr_stereo_tpu_torch.config import params
+    from i3dr_stereo_tpu_torch.io.synthetic import layered_scene
+    from i3dr_stereo_tpu_torch.matchers import bp as mbp
+
+    sc = layered_scene(cs.H_SGBM, cs.W_SGBM, **cs.SGBM_SCENE)
+    l = torch.tensor(sc.left, device=cs.DEVICE)[None]
+    r = torch.tensor(sc.right, device=cs.DEVICE)[None]
+    data = mbp.data_cost(l, r, 0, 128)
+    gen = torch.Generator(device=cs.DEVICE).manual_seed(12)
+    msgs = 0.3 * torch.randn((4,) + data.shape, device=cs.DEVICE,
+                             generator=gen)
+    call = lambda: mbp.bp_iterate(data, msgs, 1, 1.0, 1.7)
+    out["bp_messages_ms"] = cs.gpu_ms(call, iters=5)
+    out["bp_messages_b2b_ms"] = cs.back_to_back_ms(call, iters=10, warmup=2)
+    out["bp_messages_digest"] = digest(call())
+    del data, msgs
+    torch.cuda.empty_cache()
+    for name, alg in (("bp_frame", params.Algorithm.BP_GPU),
+                      ("csbp_frame", params.Algorithm.CSBP_GPU)):
+        pipe, left, right, psc, _ = cs.bp_pipe(alg)
+        res = cs.drive_frame(pipe, left, right, psc, (), f"{label} {name}",
+                             {}, max_med=cs.BP_MAX_MEDIAN_ERR)
+        out[f"{name}_digest"] = digest(res.disparity, res.valid)
+        out[f"{name}_ms"] = cs.gpu_ms(lambda: pipe.process(left, right),
+                                      iters=5, warmup=1)
+        prof = cs.phase_profile(pipe, left, right, card,
+                                label=f"{label} {name}")
+        out[f"{name}_busy_ms"] = prof["busy_ms"]
+        out[f"{name}_idle_share"] = prof["idle_share"]
+        out[f"{name}_activities"] = prof["activities"]
+        for key, sym in BP_SYMBOLS.items():
+            out[f"{name}_{key}_kernel_ms"] = sum(
+                ms for k, ms in prof["names_ms"].items() if sym in k)
+        del pipe, res
+        torch.cuda.empty_cache()
 
 
 def main() -> int:

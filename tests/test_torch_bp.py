@@ -143,6 +143,58 @@ def test_planes_kernel_takes_at_most_16_planes():
                              1, 1.0, 1.7)
 
 
+# the largest D whose 32-pixel strip block fits a block's shared memory
+STRIP_MAX_D = 446
+
+
+def _strip_bytes(D):
+    """A 32-pixel strip block's shared memory in ``bp_messages``: each
+    pixel's four forward scans of D floats and a ring of 2 AHEAD data
+    costs."""
+    return 4 * (4 * D + 2 * bp.MESSAGES_AHEAD) * 32
+
+
+@pytest.mark.parametrize("strip,first,last", [(32, 1, STRIP_MAX_D),
+                                               (0, STRIP_MAX_D + 1, 2048)])
+def test_messages_plan_picks_the_instance_from_d(strip, first, last):
+    """``bp_messages``'s kernel for every D from 1 to 2048, the two cases
+    together: the 32-pixel strip kernel with its block's bytes while they
+    fit a block's shared memory, then (0) the scans staged in device
+    memory; the cut where the wrapper's docstring puts it."""
+    assert bp.MESSAGES_STRIP == 32 and bp.SHARED_MAX == 232448
+    for D in range(first, last + 1):
+        shared = bp.messages_shared(D)
+        assert shared == (_strip_bytes(D) if strip else 0), D
+        assert shared <= bp.SHARED_MAX
+    assert _strip_bytes(STRIP_MAX_D) <= bp.SHARED_MAX < _strip_bytes(
+        STRIP_MAX_D + 1)
+    assert f"D <= {STRIP_MAX_D}" in " ".join(
+        bp.messages_shared.__doc__.split())
+
+
+@pytest.mark.parametrize("D", [1, 128, 446, 447, 900, 901, 2048])
+def test_bp_iterate_passes_the_planned_strip(monkeypatch, D):
+    """The wrapper hands the C entry the shared memory
+    :func:`messages_shared` gives for D (0 past the cut: the staged
+    kernel), one launch an iteration (meta tensors stand for the card's)."""
+    calls = []
+    monkeypatch.setattr(bp._build, "require_cuda", lambda *t: None)
+    monkeypatch.setattr(bp._build, "stream_of", lambda t: 7)
+    monkeypatch.setattr(bp._build, "launch",
+                        lambda entry, kernel, dev, *a: calls.append(
+                            (entry, kernel) + a))
+    data = torch.empty((1, D, 2, 3), device="meta")
+    msgs = torch.empty((4, 1, D, 2, 3), device="meta")
+    out = bp.bp_iterate(data, msgs, 3, 1.0, 1.7)
+    assert out.shape == msgs.shape and len(calls) == 3
+    shared = _strip_bytes(D) if D <= STRIP_MAX_D else 0
+    for c in calls:
+        assert c[:2] == ("i3dr_bp_messages", "bp_messages")
+        assert c[-2:] == (shared, 7)
+        assert c[5:9] == (1, D, 2, 3)
+        assert c[11] == np.float32(1) / np.float32(D)
+
+
 # ---------------------------------------------------------------------------
 # the whole matchers
 # ---------------------------------------------------------------------------
