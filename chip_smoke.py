@@ -179,11 +179,29 @@ final result line) on the first thing that is wrong:
     ``downsample_scale=0.5`` at 1280x1024: a (1024, 1280) result,
     density > 0.5 and median error < 1.0 px (the reference's
     test_downsample_scale gates), timed beside the full-resolution
-    matcher.
+    matcher;
+17. drives the shell around the pipeline at 2448x2048 (``phase_shell``):
+    the modules it runs import in a process where ``cv2`` cannot be
+    imported; the live graph (``launch_stereo_camera`` with I3DRSGM and
+    6 synthetic frames, driven by ``run_source``) processes every frame,
+    drops none, launches the flagship kernels, and publishes disparities
+    and valid masks bit-equal to ``StereoPipeline.process`` on each pair;
+    the matcher node with ``rectify=True`` and a ``RectifyNode`` on raw
+    uint8 frames of the distorted rig publish images bit-equal to
+    ``rectify_pair`` and to ``remap`` of the float32 frame, and
+    disparities bit-equal to ``process``; ``StreamRunner`` over 8
+    flagship pairs (raw uint8, rectified) at batch 1 with depth 0 and 2
+    and at batch 2 with depth 2 gives disparities bit-equal to per-pair
+    ``process``, with ms/frame by host clock (each setting twice, in
+    turns, split into dispatch and drain), the device idle share of a
+    profiled window and peak memory reported, not gated, and the host
+    syncs of one frame listed by call site (PyTorch's sync debug mode);
+    ``cli live`` at 2448x2048 and ``cli info`` run in-process, exit 0
+    and print their JSON.
 
 ``python3 chip_smoke.py --only bp`` (any ``phase_*`` names, comma
-separated) builds the kernels and runs those phases alone: no kernels
-line and no result line.
+separated: ``--only shell`` runs phase 17) builds the kernels and runs
+those phases alone: no kernels line and no result line.
 
 Each kernel's entry also carries its bound (the least time the card could
 take: bytes moved once over 3.35 TB/s, or operations over 67 TFLOP/s with
@@ -1341,6 +1359,27 @@ def phase_main_path(stats, card):
 # phase 6: where the frame's time goes
 # ---------------------------------------------------------------------------
 
+def device_spans(prof) -> list:
+    """(start us, end us, name) of every device activity the profiler
+    recorded, in start order; none fails the run."""
+    from torch.autograd import DeviceType
+
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    check(len(spans) > 0, "the profiler recorded no device activity")
+    return spans
+
+
+def busy_ms(spans) -> float:
+    """The union of the device activity spans, in ms."""
+    busy = 0.0
+    end = float("-inf")
+    for s, e, _ in spans:
+        busy += max(0.0, e - max(s, end))
+        end = max(end, e)
+    return busy / 1e3
+
+
 def phase_profile(pipe, left, right, card, label="flagship",
                   frames: int = 5):
     """Device busy time and idle share over one window of ``frames``
@@ -1348,7 +1387,6 @@ def phase_profile(pipe, left, right, card, label="flagship",
     the device activity spans the profiler records (device activity only,
     so the host runs as unprofiled as the profiler allows), wall is the
     host clock around the window."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1358,19 +1396,13 @@ def phase_profile(pipe, left, right, card, label="flagship",
             pipe.process(left, right)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
-    check(len(spans) > 0, "the profiler recorded no device activity")
-    busy = 0.0
-    end = float("-inf")
+    spans = device_spans(prof)
+    busy = busy_ms(spans)
     per_name: dict[str, list] = {}
     for s, e, name in spans:
-        busy += max(0.0, e - max(s, end))
-        end = max(end, e)
         acc = per_name.setdefault(name, [0, 0.0])
         acc[0] += 1
         acc[1] += e - s
-    busy /= 1e3                                   # us -> ms
     ours = sum(t for n, (_, t) in per_name.items()
                if any(k in n for k in KERNEL_SYMBOLS)) / 1e3
     htod = sum(n for name, (n, _) in per_name.items()
@@ -2640,6 +2672,321 @@ def phase_bp(stats, card):
           f"downsampled SGBM: median error {med}")
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the shell around the pipeline (node graph, runner, CLI)
+# ---------------------------------------------------------------------------
+
+SHELL_FRAMES = 6          # the live graph's synthetic frames
+RUNNER_PAIRS = 8          # the stream runner's flagship pairs
+RUNNER_SETTINGS = ((1, 0), (1, 2), (2, 2))   # (batch_size, depth)
+# the modules the shell phase runs, imported where cv2 cannot be
+SHELL_MODULES = (
+    "i3dr_stereo_tpu_torch.bridge.graph", "i3dr_stereo_tpu_torch.bridge.nodes",
+    "i3dr_stereo_tpu_torch.bridge.launch",
+    "i3dr_stereo_tpu_torch.bridge.reconfigure",
+    "i3dr_stereo_tpu_torch.bridge.services", "i3dr_stereo_tpu_torch.cli",
+    "i3dr_stereo_tpu_torch.io.sources", "i3dr_stereo_tpu_torch.io.savers",
+    "i3dr_stereo_tpu_torch.pipeline.pairing",
+    "i3dr_stereo_tpu_torch.pipeline.runner",
+    "i3dr_stereo_tpu_torch.utils.metrics",
+    "i3dr_stereo_tpu_torch.viz.viewer", "i3dr_stereo_tpu_torch.viz.colormap")
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+              "cudaEventSynchronize")
+
+
+def shell_no_cv2() -> None:
+    """Every module of the shell phase imports in a process where
+    ``import cv2`` fails."""
+    code = ("import importlib, sys\n"
+            "sys.modules['cv2'] = None\n"
+            f"for m in {SHELL_MODULES!r}:\n"
+            "    importlib.import_module(m)\n"
+            "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code],
+                         cwd=Path(__file__).resolve().parent,
+                         capture_output=True, text=True, timeout=300)
+    check(out.returncode == 0 and out.stdout.strip() == "ok",
+          f"shell: a module needs cv2 at import: {out.stderr[-2000:]}")
+    print(f"shell: {len(SHELL_MODULES)} modules import with cv2 blocked",
+          flush=True)
+
+
+def shell_live_graph(card, params, camera) -> None:
+    """The live graph at full width: every published disparity and valid
+    mask bit-equal to ``StereoPipeline.process`` on the same pair."""
+    from i3dr_stereo_tpu_torch import _build
+    from i3dr_stereo_tpu_torch.bridge.launch import (launch_stereo_camera,
+                                                     run_source)
+    from i3dr_stereo_tpu_torch.io.sources import SyntheticStereoSource
+    from i3dr_stereo_tpu_torch.pipeline.stereo_pipeline import StereoPipeline
+
+    rig = camera.StereoRig.synthetic(W_FULL, H_FULL, fx=580.0,
+                                     baseline_m=0.3)
+    lg = launch_stereo_camera(
+        rig, stereo_algorithm=params.Algorithm.I3DRSGM,
+        source=SyntheticStereoSource(width=W_FULL, height=H_FULL,
+                                     n_frames=SHELL_FRAMES),
+        rectify_inputs=False)
+    g, node = lg.graph, lg.node("generate_disparity")
+    raw, pubs = {}, []
+    for side, i in (("left", 0), ("right", 1)):
+        g.subscribe(f"/stereo/{side}/image_raw",
+                    lambda s, d, i=i: raw.setdefault(s, [None, None])
+                    .__setitem__(i, d))
+    g.subscribe("/stereo/disparity", lambda s, m: pubs.append((s, m)))
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    n = run_source(lg)
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    print(f"shell live graph [{card}]: {n} frames of {W_FULL}x{H_FULL} in "
+          f"{wall:.2f} s (scene generation and host copies included), "
+          f"processed {node.frames_processed}, dropped "
+          f"{node.frames_dropped}; launches {launches}", flush=True)
+    check(n == SHELL_FRAMES and node.frames_processed == SHELL_FRAMES
+          and node.frames_dropped == 0 and len(pubs) == SHELL_FRAMES,
+          f"shell live graph: {n} frames, {node.frames_processed} "
+          f"processed, {node.frames_dropped} dropped, {len(pubs)} published")
+    for name in FLAGSHIP_KERNELS:
+        if name != "remap":
+            check(launches[name] > 0, f"shell live graph: {name} did not "
+                  "launch")
+    ref = StereoPipeline(rig, node.pipeline.config, node.pipeline.cloud,
+                         device=DEVICE, rectify_inputs=False)
+    for stamp, msg in pubs:
+        want = ref.process(*raw[stamp])
+        check(np.array_equal(msg["disparity"], want.disparity.cpu().numpy())
+              and np.array_equal(msg["valid"], want.valid.cpu().numpy()),
+              f"shell live graph: frame at {stamp} differs from process")
+    print(f"shell live graph: {len(pubs)} published disparities and valid "
+          f"masks bit-equal to StereoPipeline.process (density "
+          f"{float(pubs[-1][1]['valid'].mean()):.4f})", flush=True)
+
+
+def shell_rectify_graph(card, params, camera, pairs) -> None:
+    """The node with ``rectify=True`` and a ``RectifyNode`` on raw uint8
+    frames of the distorted rig: rectified images bit-equal to
+    ``rectify_pair`` / ``remap``, disparities to ``process``."""
+    from i3dr_stereo_tpu_torch.bridge.launch import launch_stereo_matcher
+    from i3dr_stereo_tpu_torch.ops.rectify import remap, rectify_pair
+    from i3dr_stereo_tpu_torch.pipeline.stereo_pipeline import StereoPipeline
+
+    rig = distorted_rig(camera)
+    lg = launch_stereo_matcher(rig, stereo_algorithm=params.Algorithm.I3DRSGM,
+                               rectify_inputs=True,
+                               with_standalone_rectify=True, warmup=False)
+    g, node = lg.graph, lg.node("generate_disparity")
+    got = {}
+    for topic in ("/stereo/left/image_rect", "/stereo/right/image_rect",
+                  "/stereo/disparity", "/stereo_no_laser/left/image_rect",
+                  "/stereo_no_laser/right/image_rect"):
+        g.subscribe(topic, lambda s, d, t=topic: got.setdefault(
+            (t, s), d))
+    ref = StereoPipeline(rig, node.pipeline.config, node.pipeline.cloud,
+                         device=DEVICE)
+    maps = (ref._lmap, ref._rmap)      # built apart from the nodes' maps
+    for l, r in pairs:
+        for ns in ("/stereo", "/stereo_no_laser"):
+            g.publish(f"{ns}/left/image_raw", l.stamp, l.data)
+            g.publish(f"{ns}/right/image_raw", r.stamp, r.data)
+        lt, rt = (torch.tensor(x.data, device=DEVICE) for x in (l, r))
+        pair = [x.cpu().numpy() for x in rectify_pair(lt, rt, *maps)]
+        single = [remap(x.float(), m).cpu().numpy()
+                  for x, m in zip((lt, rt), maps)]
+        want = ref.process(l.data, r.data)
+        for i, side in enumerate(("left", "right")):
+            check(np.array_equal(got[(f"/stereo/{side}/image_rect",
+                                      l.stamp)], pair[i]),
+                  f"shell rectify: the node's {side} image is not "
+                  "rectify_pair's")
+            check(np.array_equal(got[(f"/stereo_no_laser/{side}/image_rect",
+                                      l.stamp)], single[i]),
+                  f"shell rectify: RectifyNode's {side} image is not "
+                  "remap's")
+        msg = got[("/stereo/disparity", l.stamp)]
+        check(np.array_equal(msg["disparity"], want.disparity.cpu().numpy())
+              and np.array_equal(msg["valid"], want.valid.cpu().numpy()),
+              "shell rectify: the node's disparity is not process's")
+    same = all(np.array_equal(got[(f"/stereo/{s}/image_rect", l.stamp)],
+                              got[(f"/stereo_no_laser/{s}/image_rect",
+                                   l.stamp)])
+               for l, _ in pairs for s in ("left", "right"))
+    print(f"shell rectify graph [{card}]: {len(pairs)} raw uint8 pairs of "
+          f"{W_FULL}x{H_FULL} on the distorted rig: the node's rectified "
+          f"images bit-equal to rectify_pair, RectifyNode's to remap of the "
+          f"float32 frame, disparities and valid masks to process; the two "
+          f"nodes' images {'bit-equal' if same else 'differ'}", flush=True)
+
+
+def shell_sync_sites(runner_cls, pipe, pair) -> dict:
+    """Host syncs of one runner frame (batch 1, depth 0), by the port's
+    innermost source line that issued each: PyTorch's sync debug mode
+    warns at every call that makes the host wait for the device."""
+    import traceback
+    import warnings
+
+    import i3dr_stereo_tpu_torch
+
+    pkg = Path(i3dr_stereo_tpu_torch.__file__).resolve().parent
+    sites: dict[str, int] = {}
+
+    def note(message, *args, **kw):
+        where = "outside the port"
+        for fr in reversed(traceback.extract_stack()):
+            path = Path(fr.filename).resolve()
+            if pkg in path.parents:
+                where = (f"{path.relative_to(pkg.parent)}:{fr.lineno} "
+                         f"({fr.name})")
+                break
+        sites[where] = sites.get(where, 0) + 1
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = note
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            runner_cls(pipe).run([pair], lambda *a: None, depth=0)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return sites
+
+
+def shell_runner(card, params, camera, pairs) -> None:
+    """``StreamRunner`` over the flagship pairs: bit-equal to per-pair
+    ``process`` at every setting; ms/frame, idle share and peak reported."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from i3dr_stereo_tpu_torch.pipeline.runner import StreamRunner
+    from i3dr_stereo_tpu_torch.pipeline.stereo_pipeline import StereoPipeline
+
+    rig = camera.StereoRig.synthetic(W_FULL, H_FULL, fx=580.0,
+                                     baseline_m=0.3)
+    cloud = params.PointCloudConfig(depth_max=100.0, depth_min=0.5)
+    pipe = StereoPipeline(rig, flagship_cfg(params), cloud, device=DEVICE)
+    want = {}
+    for l, r in pairs:
+        res = pipe.process(l.data, r.data)
+        want[l.stamp] = (res.disparity, res.valid)
+    runs = {k: [] for k in RUNNER_SETTINGS}
+    split = {k: [] for k in RUNNER_SETTINGS}
+    peak = {}
+    # the settings in turns, forwards then backwards
+    for order in (RUNNER_SETTINGS, RUNNER_SETTINGS[::-1]):
+        for bs, depth in order:
+            out = []
+            runner = StreamRunner(pipe, batch_size=bs)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            stats = runner.run(pairs, lambda st, c, res: out.append(
+                (st, c, res.disparity, res.valid)), depth=depth)
+            runs[(bs, depth)].append(
+                (time.perf_counter() - t0) * 1e3 / len(pairs))
+            peak[(bs, depth)] = torch.cuda.max_memory_allocated() / 2**30
+            st_ms = runner.metrics.summary()["stages"]
+            split[(bs, depth)].append(tuple(
+                st_ms[k]["mean_ms"] * st_ms[k]["count"] / len(pairs)
+                for k in ("dispatch", "drain")))
+            check(stats.frames_in == stats.frames_out == len(pairs),
+                  f"shell runner: {stats}")
+            for st, c, d, v in out:
+                for j in range(c):
+                    wd, wv = want[st[j]]
+                    check(torch.equal(d[j], wd) and torch.equal(v[j], wv),
+                          f"shell runner batch {bs} depth {depth}: frame "
+                          f"at {st[j]} differs from process")
+            del out
+    ms = {}
+    for bs, depth in RUNNER_SETTINGS:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            StreamRunner(pipe, batch_size=bs).run(
+                pairs, lambda *a: None, depth=depth)
+            wall = (time.perf_counter() - t0) * 1e3
+        busy = busy_ms(device_spans(prof))
+        r = runs[(bs, depth)]
+        ms[(bs, depth)] = statistics.median(r)
+        print(f"shell runner batch {bs} depth {depth} [{card}]: "
+              f"{len(pairs)} pairs of {W_FULL}x{H_FULL} raw uint8, "
+              f"rectified, bit-equal to per-pair process; "
+              f"{', '.join(f'{x:.3f}' for x in r)} ms/frame by host clock "
+              f"(in turns; of it dispatch + drain "
+              f"{', '.join(f'{a:.3f} + {b:.3f}' for a, b in split[(bs, depth)])}"
+              f"); profiled window {wall / len(pairs):.3f} ms/frame, device "
+              f"busy {busy / len(pairs):.3f} ms/frame, idle share "
+              f"{1 - busy / wall:.4f}; peak {peak[(bs, depth)]:.2f} GiB",
+              flush=True)
+    gain = ms[(1, 0)] - ms[(1, 2)]
+    print(f"shell runner [{card}]: depth 2 against depth 0 at batch 1: "
+          f"{ms[(1, 0)]:.3f} -> {ms[(1, 2)]:.3f} ms/frame ({gain:+.3f} ms, "
+          f"{gain / ms[(1, 0)]:+.1%} of depth 0); batch 2 depth 2 "
+          f"{ms[(2, 2)]:.3f}", flush=True)
+    sites = shell_sync_sites(StreamRunner, pipe, pairs[0])
+    drain = statistics.median(b for _, b in split[(1, 0)])
+    print(f"shell runner: what depth 2 can hide is depth 0's wait in its "
+          f"drain, {drain:.3f} ms a frame: the host is inside process for "
+          f"the rest, and process returns only after its last host sync; "
+          f"{sum(sites.values())} syncs in one frame (batch 1, depth 0) by "
+          f"call site, besides the drain's event:", flush=True)
+    for k, n in sorted(sites.items(), key=lambda kv: -kv[1]):
+        print(f"  {n:3d}x {k}", flush=True)
+
+
+def shell_cli(card) -> None:
+    """``cli live`` at full width and ``cli info``, in-process."""
+    import contextlib
+    import io
+
+    from i3dr_stereo_tpu_torch import cli
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["live", "--frames", "3", "--width", str(W_FULL),
+                       "--height", str(H_FULL), "--algorithm", "I3DRSGM"])
+    wall = time.perf_counter() - t0
+    check(rc == 0, f"cli live exited {rc}")
+    live = json.loads(buf.getvalue().strip().splitlines()[-1])
+    check(live.get("frames") == 3 and live.get("processed") == 3,
+          f"cli live: {live}")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["info"])
+    check(rc == 0, f"cli info exited {rc}")
+    info = json.loads(buf.getvalue())
+    check("jax" not in info and torch.cuda.get_device_name(0)
+          in info.get("devices", []), f"cli info: {info}")
+    print(f"shell cli [{card}]: live {json.dumps(live)} in {wall:.2f} s "
+          f"(warm-up and scene generation included); info "
+          f"{json.dumps(info)}", flush=True)
+
+
+def phase_shell(stats, card):
+    """The shell around the pipeline at 2448x2048: the live graph, the
+    graph rectifying raw frames, the stream runner and the CLI."""
+    from i3dr_stereo_tpu_torch.config import params
+    from i3dr_stereo_tpu_torch.core import camera
+    from i3dr_stereo_tpu_torch.io.synthetic import layered_scene
+    from i3dr_stereo_tpu_torch.pipeline.pairing import Stamped
+
+    t0 = time.perf_counter()
+    shell_no_cv2()
+    shell_live_graph(card, params, camera)
+    # one flagship scene, generated once and rolled along x for each pair
+    sc = layered_scene(H_FULL, W_FULL, **SCENE)
+    L, R = raw_u8(sc.left), raw_u8(sc.right)
+    pairs = [(Stamped(i / 5.0, np.roll(L, 97 * i, axis=1), i),
+              Stamped(i / 5.0, np.roll(R, 97 * i, axis=1), i))
+             for i in range(RUNNER_PAIRS)]
+    shell_rectify_graph(card, params, camera, pairs[:2])
+    shell_runner(card, params, camera, pairs)
+    shell_cli(card)
+    torch.cuda.empty_cache()
+    print(f"shell phase done in {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device (torch.cuda.is_available() is false)",
@@ -2691,6 +3038,7 @@ def main() -> int:
     phase_facade(stats, card)
     phase_interp(stats, card)
     phase_bp(stats, card)
+    phase_shell(stats, card)
     print(f"whole run {time.perf_counter() - t_start:.1f} s", flush=True)
 
     for k, st in stats.items():

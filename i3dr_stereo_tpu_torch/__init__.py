@@ -14,6 +14,11 @@ images, the coarse-to-fine pyramid census SGM with the exact speckle
 filter, depth, point cloud and crop; the dense matchers (SGBM, BM, dense
 I3DRSGM); the engine's post-match stages (half-pel pass, occlusion
 handling, Gauss and WLS hole filling) and its facade,
-``matchers.i3drsgm.I3DRSGM``, with the ``.param`` profiles
-(ROADMAP.md lists what comes next).
+``matchers.i3drsgm.I3DRSGM``, with the ``.param`` profiles; belief
+propagation; and the shell around the pipeline: the node graph
+(``bridge``), the stream runner, the savers and sources, the headless
+viewer and the CLI (``python -m i3dr_stereo_tpu_torch.cli``).
+ROADMAP.md lists what comes next.
 """
+
+__version__ = "0.1.0"

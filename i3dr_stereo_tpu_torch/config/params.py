@@ -189,3 +189,22 @@ ALGORITHM_DEFAULTS = {
         disparity_range=64, bp_iters=8, bp_levels=4,
     ),
 }
+
+
+@dataclasses.dataclass(frozen=True)
+class CameraSettings:
+    """cfg/tiscamera_settings.cfg — capture property schema."""
+
+    brightness: int = 0        # 0..4095
+    exposure: int = 6000       # 20..100000 (us)
+    gain: int = 0              # 0..480
+    exposure_auto: bool = False
+    gain_auto: bool = False
+
+    def clamp(self) -> "CameraSettings":
+        return dataclasses.replace(
+            self,
+            brightness=min(max(self.brightness, 0), 4095),
+            exposure=min(max(self.exposure, 20), 100000),
+            gain=min(max(self.gain, 0), 480),
+        )

@@ -112,6 +112,18 @@ class CameraModel:
         with open(path, "r") as f:
             return CameraModel.from_dict(yaml.safe_load(f))
 
+    def to_dict(self) -> dict:
+        return {
+            "image_width": self.width,
+            "image_height": self.height,
+            "camera_matrix": {"rows": 3, "cols": 3, "data": self.K.reshape(-1).tolist()},
+            "distortion_model": "plumb_bob",
+            "distortion_coefficients": {"rows": 1, "cols": int(self.D.size),
+                                        "data": self.D.reshape(-1).tolist()},
+            "rectification_matrix": {"rows": 3, "cols": 3, "data": self.R.reshape(-1).tolist()},
+            "projection_matrix": {"rows": 3, "cols": 4, "data": self.P.reshape(-1).tolist()},
+        }
+
 
 def calc_q(left: CameraModel, right: CameraModel) -> np.ndarray:
     """Build the 4x4 disparity-to-depth reprojection matrix Q.
@@ -165,6 +177,14 @@ class StereoRig:
     @property
     def Q(self) -> np.ndarray:
         return calc_q(self.left, self.right)
+
+    def depth_to_disparity(self, depth: float) -> float:
+        """d = fx * B / Z — used for the depth_max -> min_disparity clamp
+        the reference applies (generate_disparity.cpp:449-452)."""
+        return self.fx * self.baseline / depth
+
+    def disparity_to_depth(self, disp: float) -> float:
+        return self.fx * self.baseline / disp
 
     @staticmethod
     def synthetic(width: int = 640, height: int = 480, *, fx: float = 580.0,

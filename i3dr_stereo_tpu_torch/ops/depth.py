@@ -14,7 +14,10 @@ bounds may be Python floats or 0-dim float32 tensors (runtime scalars).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+from i3dr_stereo_tpu_torch.core.frame import to_numpy
 
 MISSING_Z = 10000.0  # reference invalid-disparity marker (generate_disparity.cpp:449-452)
 
@@ -65,3 +68,15 @@ def crop_by_disparity(image: torch.Tensor, disp: torch.Tensor,
         ok = ok[..., None]
     return torch.where(ok, image, torch.zeros((), dtype=image.dtype,
                                               device=image.device))
+
+
+def pointcloud_to_numpy(pc: dict) -> tuple[np.ndarray, np.ndarray | None]:
+    """Host-side compaction: drop invalid points (for PLY export). The
+    cloud's entries may be tensors on any device or numpy arrays; the
+    result is numpy."""
+    xyz = to_numpy(pc["xyz"])
+    valid = to_numpy(pc["valid"])
+    rgb = to_numpy(pc["rgb"]) if "rgb" in pc else None
+    xyz = xyz[valid]
+    rgb = rgb[valid] if rgb is not None else None
+    return xyz, rgb

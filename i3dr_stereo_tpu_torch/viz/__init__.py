@@ -1,0 +1,1 @@
+"""Torch port of ``i3dr_stereo_tpu.viz``."""

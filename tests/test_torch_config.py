@@ -184,25 +184,59 @@ def test_cuda_device_raises_without_cuda():
         StereoPipeline(camera.StereoRig.synthetic(64, 48), cfg, device="meta")
 
 
-@pytest.mark.parametrize("entry", ["StereoPipeline", "make_rectify_map",
-                                   "StereoMatcher", "create_matcher"])
-def test_entry_points_default_to_the_card(entry):
+@pytest.mark.parametrize("entry", [
+    "StereoPipeline", "make_rectify_map", "StereoMatcher", "create_matcher",
+    "GenerateDisparityNode", "RectifyNode", "DisparityToDepthNode",
+    "CropByDisparityNode", "warmup_matchers", "launch_stereo_matcher",
+    "launch_stereo_camera", "launch_processing", "launch_replay",
+    "cli_match", "cli_live", "cli_replay", "DeviceMem", "Frame",
+    "StereoFrame"])
+def test_entry_points_default_to_the_card(entry, tmp_path):
     """Without ``device`` the entry points run on the card; with no card
     they raise, never falling back to the CPU."""
+    import cv2
+
+    from i3dr_stereo_tpu_torch import cli
+    from i3dr_stereo_tpu_torch.bridge import graph, launch, nodes
+    from i3dr_stereo_tpu_torch.core import frame
     from i3dr_stereo_tpu_torch.matchers import base
     from i3dr_stereo_tpu_torch.ops import rectify
     from i3dr_stereo_tpu_torch.pipeline.stereo_pipeline import StereoPipeline
+    from i3dr_stereo_tpu_torch.utils.device_memory import DeviceMem
 
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     cfg = params.ALGORITHM_DEFAULTS[params.Algorithm.SGBM]
+    rig = camera.StereoRig.synthetic(64, 48)
+    png = str(tmp_path / "l_rect000000.png")
+    cv2.imwrite(png, np.zeros((48, 64), np.uint8))
     make = {
-        "StereoPipeline": lambda: StereoPipeline(
-            camera.StereoRig.synthetic(64, 48), cfg),
+        "StereoPipeline": lambda: StereoPipeline(rig, cfg),
         "make_rectify_map": lambda: rectify.make_rectify_map(
             camera.CameraModel.ideal(16, 8, 10.0)),
         "StereoMatcher": lambda: base.StereoMatcher(cfg),
         "create_matcher": lambda: base.create_matcher(params.Algorithm.SGBM),
+        "GenerateDisparityNode": lambda: nodes.GenerateDisparityNode(
+            graph.Graph(), rig, cfg),
+        "RectifyNode": lambda: nodes.RectifyNode(graph.Graph(), rig),
+        "DisparityToDepthNode": lambda: nodes.DisparityToDepthNode(
+            graph.Graph(), rig),
+        "CropByDisparityNode": lambda: nodes.CropByDisparityNode(
+            graph.Graph()),
+        "warmup_matchers": lambda: nodes.warmup_matchers(cfg),
+        "launch_stereo_matcher": lambda: launch.launch_stereo_matcher(
+            rig, warmup=False),
+        "launch_stereo_camera": lambda: launch.launch_stereo_camera(rig),
+        "launch_processing": lambda: launch.launch_processing(rig),
+        "launch_replay": lambda: launch.launch_replay(rig, str(tmp_path)),
+        "cli_match": lambda: cli.main(["match", png, png,
+                                       "-o", str(tmp_path / "out")]),
+        "cli_live": lambda: cli.main(["live", "--frames", "1"]),
+        "cli_replay": lambda: cli.main(["replay", str(tmp_path)]),
+        "DeviceMem": lambda: DeviceMem(),
+        "Frame": lambda: frame.Frame.create(np.zeros((4, 4))),
+        "StereoFrame": lambda: frame.StereoFrame.create(np.zeros((4, 4)),
+                                                        np.zeros((4, 4))),
     }[entry]
     with pytest.raises(RuntimeError, match="CUDA"):
         make()
