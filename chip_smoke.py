@@ -197,10 +197,36 @@ final result line) on the first thing that is wrong:
     profiled window and peak memory reported, not gated, and the host
     syncs of one frame listed by call site (PyTorch's sync debug mode);
     ``cli live`` at 2448x2048 and ``cli info`` run in-process, exit 0
-    and print their JSON.
+    and print their JSON;
+18. drives the mapping path (``phase_mapping``) on the room and 10-pose
+    trajectory of ``examples/demo_mapping_moving.py`` rendered at
+    2448x2048 (fx = fy = 2142): ``tsdf_integrate`` bit-equal to its twin
+    in a 512^3 volume after three integrations (one pose with half the
+    grid behind the camera); ``icp_step`` against its twin for 3 steps at
+    each pyramid level (the same pixels paired, A, b and sum w r^2 within
+    1e-4 of their scales) and a whole track (1e-4 m, 5e-3 deg); both timed
+    beside their bounds, ``icp_step`` also beside ``Jw^T J`` on a ready J
+    (each step from the twin's state after the last, so both pair pixels
+    for the same pose).
+    Then the main path, counted: ``DepthOdometry`` tracks the 10 frames
+    and each is fused into 512^3 x 0.01 m with its estimated pose (21
+    ``icp_step`` a frame, one ``tsdf_integrate``); the reference's gates
+    (ATE < 0.05 m, rotation < 1 deg, map IoU against the ground-truth-pose
+    fusion > 0.8 in the demo's 64^3 x 0.08 m volume); the 512^3 IoU,
+    ``track`` and ``integrate`` ms, peak memory and the host syncs of one
+    ``track`` call by call site and by part (only its final readout may
+    sync in the port, its iterations not at all). Last,
+    ``launch_processing`` with the flagship config and the map consumer
+    over 4 flagship frames into 512^3 x 0.025 m: the background plane at
+    10.875 m within 3 voxels; beyond it plus the truncation and a voxel,
+    at most 0.1 % of the occupied voxels, each within the truncation of
+    the depth the matcher measured at its own pixel (its outliers); the
+    volume bit-equal to the twin fed the same depth frames, and the
+    graph's ms/frame with and without the consumer.
 
 ``python3 chip_smoke.py --only bp`` (any ``phase_*`` names, comma
-separated: ``--only shell`` runs phase 17) builds the kernels and runs
+separated: ``--only shell`` runs phase 17, ``--only mapping`` phase 18)
+builds the kernels and runs
 those phases alone: no kernels line and no result line.
 
 Each kernel's entry also carries its bound (the least time the card could
@@ -281,6 +307,11 @@ SOURCES = {
                     "i3dr_stereo_tpu/matchers/bp.py:42,75"),
     "bp_planes": ("i3dr_stereo_tpu_torch/csrc/bp_planes.cu",
                   "i3dr_stereo_tpu/matchers/bp.py:122"),
+    # the mapping path's voxel update and ICP step: XLA in the reference
+    "tsdf_integrate": ("i3dr_stereo_tpu_torch/csrc/tsdf_integrate.cu",
+                       "i3dr_stereo_tpu/mapping/tsdf.py:39"),
+    "icp_step": ("i3dr_stereo_tpu_torch/csrc/icp_step.cu",
+                 "i3dr_stereo_tpu/mapping/odometry.py:112"),
 }
 # the kernels of each main path: the flagship frame, the SGBM frame
 FLAGSHIP_KERNELS = ("census_transform", "census_cost", "sgm_sweep",
@@ -305,7 +336,8 @@ KERNEL_SYMBOLS = ("census_cost_kernel", "sgm_sweep_kernel",
                   "census_fwd_kernel", "census32_kernel", "bt_fwd_kernel",
                   "census_fixed_kernel", "census_any_kernel",
                   "gauss_rays_kernel", "wls_lines_kernel",
-                  "bp_messages_", "bp_planes_kernel")
+                  "bp_messages_", "bp_planes_kernel", "tsdf_kernel",
+                  "icp_terms_kernel", "icp_solve_kernel")
 # accuracy_bench.py:sgbm_1280's scene and size
 H_SGBM, W_SGBM = 1024, 1280
 SGBM_SCENE = dict(max_disp=120, background_disp=8, layers=5, seed=21)
@@ -2819,10 +2851,10 @@ def shell_rectify_graph(card, params, camera, pairs) -> None:
           f"nodes' images {'bit-equal' if same else 'differ'}", flush=True)
 
 
-def shell_sync_sites(runner_cls, pipe, pair) -> dict:
-    """Host syncs of one runner frame (batch 1, depth 0), by the port's
-    innermost source line that issued each: PyTorch's sync debug mode
-    warns at every call that makes the host wait for the device."""
+def sync_sites(fn) -> dict:
+    """Host syncs of one call of ``fn``, by the port's innermost source
+    line that issued each: PyTorch's sync debug mode warns at every call
+    that makes the host wait for the device."""
     import traceback
     import warnings
 
@@ -2832,8 +2864,12 @@ def shell_sync_sites(runner_cls, pipe, pair) -> dict:
     sites: dict[str, int] = {}
 
     def note(message, *args, **kw):
-        where = "outside the port"
-        for fr in reversed(traceback.extract_stack()):
+        stack = traceback.extract_stack()[:-1]
+        outer = [fr for fr in stack if not fr.filename.endswith("warnings.py")]
+        where = (f"outside the port ({Path(outer[-1].filename).name}:"
+                 f"{outer[-1].lineno} {outer[-1].name})" if outer
+                 else "outside the port")
+        for fr in reversed(stack):
             path = Path(fr.filename).resolve()
             if pkg in path.parents:
                 where = (f"{path.relative_to(pkg.parent)}:{fr.lineno} "
@@ -2847,7 +2883,7 @@ def shell_sync_sites(runner_cls, pipe, pair) -> dict:
         warnings.showwarning = note
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            runner_cls(pipe).run([pair], lambda *a: None, depth=0)
+            fn()
         finally:
             torch.cuda.set_sync_debug_mode(0)
     return sites
@@ -2923,7 +2959,8 @@ def shell_runner(card, params, camera, pairs) -> None:
           f"{ms[(1, 0)]:.3f} -> {ms[(1, 2)]:.3f} ms/frame ({gain:+.3f} ms, "
           f"{gain / ms[(1, 0)]:+.1%} of depth 0); batch 2 depth 2 "
           f"{ms[(2, 2)]:.3f}", flush=True)
-    sites = shell_sync_sites(StreamRunner, pipe, pairs[0])
+    sites = sync_sites(lambda: StreamRunner(pipe).run(
+        [pairs[0]], lambda *a: None, depth=0))
     drain = statistics.median(b for _, b in split[(1, 0)])
     print(f"shell runner: what depth 2 can hide is depth 0's wait in its "
           f"drain, {drain:.3f} ms a frame: the host is inside process for "
@@ -2987,6 +3024,488 @@ def phase_shell(stats, card):
     print(f"shell phase done in {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the mapping path (TSDF fusion and projective-ICP odometry)
+# ---------------------------------------------------------------------------
+
+# examples/demo_mapping_moving.py's room and trajectory, rendered at the
+# flagship size (its 320x240 intrinsics scaled by 2448 / 320)
+MAP_K = np.array([[2142.0, 0.0, 1224.0], [0.0, 2142.0, 1024.0],
+                  [0.0, 0.0, 1.0]], np.float32)
+MAP_SCENE = [
+    ((0.0, 0.0, 3.0), (0.0, 0.0, -1.0), (3.0, 3.0, 0.01)),
+    ((-1.0, 0.0, 2.2), (1.0, 0.0, -0.7), (0.6, 1.6, 0.7)),
+    ((0.0, 0.9, 2.0), (0.0, -1.0, -0.4), (1.8, 0.5, 0.9)),
+    ((0.45, -0.25, 1.6), (0.0, 0.0, -1.0), (0.35, 0.25, 0.01)),
+]
+MAP_FRAMES = 10
+MAP_GRID = (512, 512, 512)
+# the moving rig's volumes: the demo's (gated) and 512^3 over its extent
+DEMO_VOLUME = dict(shape=(64, 64, 64), voxel_size=0.08,
+                   origin=(-2.0, -2.0, 0.0))
+FINE_VOLUME = dict(shape=MAP_GRID, voxel_size=0.01, origin=(-2.0, -2.0, 0.0))
+# the stereo-fed volume: 12.8 m at 0.025 m, the scene's 0.87-10.9 m
+STEREO_VOLUME = dict(shape=MAP_GRID, voxel_size=0.025,
+                     origin=(-6.4, -6.4, 0.0))
+STEREO_FRAMES = 4
+# occupied voxels of the stereo-fed map beyond the background plane plus
+# the truncation and a voxel, at most (the matcher's outliers put 24 of
+# 92004 there, 0.026 %; each is held to the depth measured at its pixel)
+MAX_BEYOND_SHARE = 1e-3
+MAX_ATE_M = 0.05          # the reference's trajectory gates
+MAX_ROT_DEG = 1.0
+MIN_MAP_IOU = 0.8
+# icp_step against its twin: the same pixels pair (sum w exact); A, b and
+# sum w r^2 are sums in another order: |dA| / max|A|, |d sum w r^2| / its
+# value and |db| / sqrt(max diag A * sum w r^2) (|b| is bounded by that)
+TOL_ICP_REL = 1e-4
+TOL_TRACK_M = 1e-4        # a whole track, kernels vs twins: translation
+TOL_TRACK_DEG = 5e-3      # and rotation
+TSDF_OPS_PER_VOXEL = 45   # float operations of tsdf_integrate a voxel
+ICP_OPS_PER_PIXEL = 100   # of icp_step a pixel
+# the bytes an ICP iteration needs a pixel, as the reference's _icp_level
+# reads them: the current vertex (12) and valid flag (1), the previous
+# vertex and normal (12 + 12) and ok flag (1) at the hit pixel; the packed
+# float4 maps the kernel reads are 48 (padding and flags as floats)
+ICP_BYTES_PER_PIXEL = 38
+
+
+def map_trajectory():
+    """The demo's 10 poses (T_wc), default_rng(3)."""
+    from i3dr_stereo_tpu_torch.mapping.odometry import _se3_exp
+
+    rng = np.random.default_rng(3)
+    poses = [np.eye(4, dtype=np.float32)]
+    for _ in range(MAP_FRAMES - 1):
+        xi = np.array([np.radians(rng.normal(0, 0.1)),
+                       np.radians(0.6 + rng.normal(0, 0.1)), 0.0,
+                       0.025 + rng.normal(0, 0.003), rng.normal(0, 0.003),
+                       0.02 + rng.normal(0, 0.003)], np.float32)
+        step = _se3_exp(torch.from_numpy(xi)).numpy()
+        poses.append((poses[-1] @ step).astype(np.float32))
+    return poses
+
+
+def rot_diff_deg(Ra, Rb) -> float:
+    """Angle between two rotations, from their Frobenius distance."""
+    f = np.linalg.norm(np.asarray(Ra, np.float64) - np.asarray(Rb, np.float64))
+    return float(np.degrees(2 * np.arcsin(min(1.0, f / (2 * np.sqrt(2))))))
+
+
+def inv_pose(T) -> np.ndarray:
+    return np.linalg.inv(np.asarray(T, np.float64)).astype(np.float32)
+
+
+def map_kernel_tsdf(stats, card, depths, poses) -> None:
+    """tsdf_integrate vs its twin at 512^3 from three poses (the third
+    with half the grid behind the camera): bit-equal after each; timed."""
+    from i3dr_stereo_tpu_torch.mapping import tsdf
+
+    behind = np.eye(4, dtype=np.float32)
+    behind[2, 3] = 2.5                 # at z = 2.5 m: z < 2.5 behind it
+    shots = [(depths[0], inv_pose(poses[0])), (depths[5], inv_pose(poses[5])),
+             (depths[9], inv_pose(behind))]
+    g = FINE_VOLUME
+    tk = torch.zeros(g["shape"], device=DEVICE)
+    wk = torch.zeros_like(tk)
+    tp, wp = tk.clone(), wk.clone()
+    for i, (d, T) in enumerate(shots):
+        dt = torch.tensor(d, device=DEVICE)
+        tsdf.integrate(tk, wk, dt, MAP_K, T, g["origin"], g["voxel_size"])
+        tp, wp = tsdf.integrate(tp, wp, dt, MAP_K, T, g["origin"],
+                                g["voxel_size"], plain=True)
+        torch.cuda.synchronize()
+        check(torch.equal(tk, tp) and torch.equal(wk, wp),
+              f"tsdf_integrate differs from its twin after integration {i}: "
+              f"{int((tk != tp).sum())} tsdf, {int((wk != wp).sum())} weight")
+        print(f"tsdf_integrate {'x'.join(map(str, g['shape']))} from "
+              f"{W_FULL}x{H_FULL}, pose {i}: bit-equal to its twin; seen "
+              f"voxels {int((wk > 0).sum())}", flush=True)
+    del tp, wp
+    dt = torch.tensor(depths[0], device=DEVICE)
+    T = inv_pose(poses[0])
+
+    def run(plain=False):
+        return tsdf.integrate(tk, wk, dt, MAP_K, T, g["origin"],
+                              g["voxel_size"], plain=plain)
+
+    st = stats["tsdf_integrate"]
+    st["ms"] = gpu_ms(run)
+    st["back_to_back_ms"] = back_to_back_ms(run, iters=20, warmup=2)
+    st["plain_ms"] = gpu_ms(lambda: run(plain=True), iters=3, warmup=1)
+    st["err"] = 0.0
+    n = int(np.prod(g["shape"]))
+    set_bound(stats, "tsdf_integrate", 16 * n + 4 * dt.numel(),
+              TSDF_OPS_PER_VOXEL * n)
+    print(f"timing [{card}]: tsdf_integrate at 512^3 from {W_FULL}x{H_FULL} "
+          f"{st['ms']:.4f} ms by events, {st['back_to_back_ms']:.4f} back to "
+          f"back; bound {st['bound_ms']:.4f} ms ({st['bound_by']}); twin "
+          f"{st['plain_ms']:.2f} ms", flush=True)
+    del tk, wk
+    torch.cuda.empty_cache()
+
+
+def icp_compare(a, b, label) -> dict:
+    """Kernel state ``a`` against twin state ``b``: the same pixels (sum w
+    equal), A, b, sum w r^2 within TOL_ICP_REL of their scales."""
+    A, Ap = a[18:54], b[18:54]
+    sr2, sr2p = float(a[60]), float(b[60])
+    scale_b = float((Ap.reshape(6, 6).diagonal().max() * b[60]).sqrt())
+    err = {"A": float((A - Ap).abs().max() / Ap.abs().max()),
+           "b": float((a[54:60] - b[54:60]).abs().max()) / max(scale_b, 1e-30),
+           "sum_wr2": abs(sr2 - sr2p) / max(sr2p, 1e-30),
+           "T": float((a[:16] - b[:16]).abs().max())}
+    check(float(a[61]) == float(b[61]) and float(b[61]) > 0,
+          f"icp_step {label}: sum w {float(a[61])} against the twin's "
+          f"{float(b[61])}")
+    check(max(err["A"], err["b"], err["sum_wr2"]) < TOL_ICP_REL,
+          f"icp_step {label}: {err} against the twin (tolerance "
+          f"{TOL_ICP_REL})")
+    return err
+
+
+def map_kernel_icp(stats, card, depths):
+    """icp_step vs its twin at each level of a 2448x2048 pair and a whole
+    track; timed at level 0 beside Jw^T J on a ready J."""
+    from i3dr_stereo_tpu_torch.mapping import odometry as odo
+
+    prev = odo.pack_maps(torch.tensor(depths[0], device=DEVICE), MAP_K, 3)
+    cur = odo.pack_maps(torch.tensor(depths[1], device=DEVICE), MAP_K, 3)
+    worst = 0.0
+    for li in range(3):
+        Kl = odo.level_intrinsics(MAP_K, li)
+        cam = (Kl[0, 0], Kl[1, 1], Kl[0, 2], Kl[1, 2])
+        sp = torch.zeros(odo.STATE, device=DEVICE)
+        sp[:16] = torch.eye(4, device=DEVICE).reshape(-1)
+        for it in range(3):
+            # both from the same state: the twin's after the last step
+            sk = sp.clone()
+            sp = odo.icp_step(cur[li][0], *prev[li], cam, sp, 0.5, plain=True)
+            odo.icp_step(cur[li][0], *prev[li], cam, sk, 0.5)
+            torch.cuda.synchronize()
+            err = icp_compare(sk, sp, f"level {li} step {it}")
+            worst = max(worst, err["A"], err["b"], err["sum_wr2"])
+        h, w = cur[li][0].shape[:2]
+        print(f"icp_step level {li} ({w}x{h}): 3 steps within "
+              f"{TOL_ICP_REL:g} of the twin, same pixels (sum w "
+              f"{int(float(sk[61]))}); last {json.dumps(err)}", flush=True)
+    T0 = torch.eye(4, device=DEVICE)
+    tk = odo._track(prev, cur, MAP_K, T0)
+    tp = odo._track(prev, cur, MAP_K, T0, plain=True)
+    a = tk[:16].reshape(4, 4).cpu().numpy()
+    b = tp[:16].reshape(4, 4).cpu().numpy()
+    dt = float(np.linalg.norm(a[:3, 3] - b[:3, 3]))
+    dr = rot_diff_deg(a[:3, :3], b[:3, :3])
+    check(dt < TOL_TRACK_M and dr < TOL_TRACK_DEG,
+          f"track, kernels vs twins: {dt} m, {dr} deg")
+    print(f"icp_step: a whole track (4 / 7 / 10 steps) within {dt:.3g} m and "
+          f"{dr:.3g} deg of the twins' (tolerance {TOL_TRACK_M:g} m, "
+          f"{TOL_TRACK_DEG:g} deg); worst relative difference of a step "
+          f"{worst:.3g}", flush=True)
+    st = stats["icp_step"]
+    st["err"] = worst
+    Kl = odo.level_intrinsics(MAP_K, 0)
+    cam = (Kl[0, 0], Kl[1, 1], Kl[0, 2], Kl[1, 2])
+    state = torch.zeros(odo.STATE, device=DEVICE)
+    state[:16] = torch.eye(4, device=DEVICE).reshape(-1)
+    scratch = torch.empty(odo.ICP_PARTIALS, device=DEVICE)
+    ready = state.clone()
+
+    def step():
+        return odo.icp_step(cur[0][0], *prev[0], cam, state, 0.5,
+                            scratch=scratch)
+
+    st["ms"] = gpu_ms(step)
+    st["back_to_back_ms"] = back_to_back_ms(step)
+    st["plain_ms"] = gpu_ms(lambda: odo.icp_step(
+        cur[0][0], *prev[0], cam, ready, 0.5, plain=True), iters=5, warmup=1)
+    track_ms = gpu_ms(lambda: odo._track(prev, cur, MAP_K, T0), iters=5)
+    plain_track_ms = gpu_ms(lambda: odo._track(prev, cur, MAP_K, T0,
+                                               plain=True), iters=2)
+    # the yardstick: A = Jw^T J on a ready (N, 6) J, one cuBLAS call
+    J = torch.randn(cur[0][0].shape[0] * cur[0][0].shape[1], 6,
+                    device=DEVICE)
+    Jw = J * (torch.rand(J.shape[0], 1, device=DEVICE) > 0.1)
+    st["jtj_ms"] = gpu_ms(lambda: Jw.T @ J)
+    st["jtj_back_to_back_ms"] = back_to_back_ms(lambda: Jw.T @ J)
+    st["track_ms"] = track_ms
+    st["plain_track_ms"] = plain_track_ms
+    n0 = cur[0][0].shape[0] * cur[0][0].shape[1]
+    set_bound(stats, "icp_step", ICP_BYTES_PER_PIXEL * n0,
+              ICP_OPS_PER_PIXEL * n0)
+    npix = [cur[li][0].shape[0] * cur[li][0].shape[1] for li in range(3)]
+    track_bytes = ICP_BYTES_PER_PIXEL * sum(
+        n * k for n, k in zip(npix, (4, 7, 10)))
+    st["track_bound_ms"] = track_bytes / PEAK_BYTES_S * 1e3
+    print(f"timing [{card}]: icp_step at level 0 ({W_FULL}x{H_FULL}) "
+          f"{st['ms']:.4f} ms by events, "
+          f"{st['back_to_back_ms']:.4f} back to back; bound "
+          f"{st['bound_ms']:.4f} ms ({st['bound_by']}); twin "
+          f"{st['plain_ms']:.3f} ms; Jw^T J on a ready J {st['jtj_ms']:.4f} "
+          f"ms ({st['jtj_back_to_back_ms']:.4f} back to back); a whole track "
+          f"on ready maps {track_ms:.3f} ms (bound {st['track_bound_ms']:.4f}"
+          f", {track_bytes / 1e9:.3f} GB), twins {plain_track_ms:.2f} ms",
+          flush=True)
+
+
+def occupancy_iou(a, b) -> float:
+    return float((a & b).sum() / max((a | b).sum(), 1))
+
+
+def map_moving_rig(stats, card, depths, poses) -> None:
+    """The demo at 2448x2048: DepthOdometry tracks the 10 frames and each
+    is fused into a 512^3 volume with its estimated pose (the main path,
+    counted); the reference's gates on the trajectory and the demo's map."""
+    from i3dr_stereo_tpu_torch import _build
+    from i3dr_stereo_tpu_torch.mapping import DepthOdometry, TSDFVolume
+
+    odo = DepthOdometry(K=MAP_K)
+    vol = TSDFVolume(**FINE_VOLUME)
+    odo.track(depths[0])                 # warm-up, then a fresh tracker
+    odo = DepthOdometry(K=MAP_K)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    est, track_ms, integrate_ms = [], [], []
+    for d in depths:
+        T_wc, ms = timed(lambda: odo.track(d).copy())
+        est.append(T_wc)
+        track_ms.append(ms)
+        _, ms = timed(lambda: vol.integrate(d, MAP_K, inv_pose(T_wc)))
+        integrate_ms.append(ms)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"moving rig launches ({MAP_FRAMES} frames of {W_FULL}x{H_FULL}): "
+          f"{launches}", flush=True)
+    want = (MAP_FRAMES - 1) * sum(odo.iters)
+    check(launches["icp_step"] == want
+          and launches["tsdf_integrate"] == MAP_FRAMES,
+          f"moving rig: icp_step {launches['icp_step']} (want {want}), "
+          f"tsdf_integrate {launches['tsdf_integrate']}")
+    for name in ("icp_step", "tsdf_integrate"):
+        stats[name]["launches"] = launches[name]
+    ate = [float(np.linalg.norm(e[:3, 3] - g[:3, 3]))
+           for e, g in zip(est, poses)]
+    rot = [rot_diff_deg(e[:3, :3], g[:3, :3]) for e, g in zip(est, poses)]
+    check(max(ate) < MAX_ATE_M and max(rot) < MAX_ROT_DEG,
+          f"moving rig: ATE {max(ate)} m, rotation {max(rot)} deg")
+
+    def fuse(pose_list, volume):
+        v = TSDFVolume(**volume)
+        for d, T_wc in zip(depths, pose_list):
+            v.integrate(d, MAP_K, inv_pose(T_wc))
+        return v
+
+    iou = occupancy_iou(fuse(poses, DEMO_VOLUME).occupancy_grid(),
+                        fuse(est, DEMO_VOLUME).occupancy_grid())
+    check(iou > MIN_MAP_IOU, f"moving rig: map IoU {iou} <= {MIN_MAP_IOU}")
+    iou_fine = occupancy_iou(fuse(poses, FINE_VOLUME).occupancy_grid(),
+                             vol.occupancy_grid())
+    sites = sync_sites(lambda: odo.track(depths[3]))
+    empty = sync_sites(lambda: None)
+    # the same call in its parts
+    from i3dr_stereo_tpu_torch.mapping import odometry as odom
+    from i3dr_stereo_tpu_torch.mapping.tsdf import to_device
+
+    box = {}
+    parts = {
+        "upload": lambda: box.update(d=to_device(depths[4], odo.device)),
+        "pack_maps": lambda: box.update(m=odom.pack_maps(box["d"], MAP_K, 3)),
+        "iterations": lambda: box.update(s=odom._track(
+            odo._prev, box["m"], MAP_K, torch.eye(4, device=DEVICE))),
+        "readout": lambda: odom._readout(box["s"]),
+    }
+    by_part = {k: sync_sites(f) for k, f in parts.items()}
+    print(f"moving rig [{card}]: ATE max {max(ate):.5f} m (final "
+          f"{ate[-1]:.5f}), rotation error max {max(rot):.4f} deg, last ICP "
+          f"rmse {odo.last_diag['rmse']:.5f} m, inlier share "
+          f"{odo.last_diag['inlier_frac']:.4f}; map IoU against the "
+          f"ground-truth-pose fusion {iou:.4f} in the demo's 64^3 x 0.08 m "
+          f"volume (gate > {MIN_MAP_IOU}), {iou_fine:.4f} in 512^3 x 0.01 m "
+          f"(reported)", flush=True)
+    med_track = statistics.median(track_ms[1:])
+    print(f"timing [{card}]: track {med_track:.3f} ms a frame by events "
+          f"(median of {MAP_FRAMES - 1}; "
+          f"{', '.join(f'{x:.3f}' for x in track_ms[1:])}; numpy depth in, "
+          f"pose out), first frame {track_ms[0]:.3f}; integrate into 512^3 "
+          f"{statistics.median(integrate_ms):.3f} ms by events (median); "
+          f"peak {peak:.2f} GiB", flush=True)
+    print(f"moving rig: {sum(sites.values())} host syncs in one track call, "
+          f"by call site (an empty call lists {empty}):", flush=True)
+    for k, n in sorted(sites.items(), key=lambda kv: -kv[1]):
+        print(f"  {n:3d}x {k}", flush=True)
+    print(f"moving rig: the same call in its parts: {by_part}", flush=True)
+    port = {k: n for k, n in sites.items() if not k.startswith("outside")}
+    check(all("(_readout)" in k for k in port) and sum(port.values()) == 1
+          and not by_part["iterations"],
+          f"track syncs the host in the port outside its final readout: "
+          f"{sites}, by part {by_part}")
+    stats["icp_step"]["track_frame_ms"] = med_track
+    stats["tsdf_integrate"]["frame_ms"] = statistics.median(integrate_ms)
+
+
+def map_stereo_fed(card) -> None:
+    """launch_processing with the flagship config and the map consumer
+    into a 512^3 volume: the background plane at 10.875 m, nothing beyond
+    it; bit-equal to the twin fed the same depth frames."""
+    from i3dr_stereo_tpu_torch import _build
+    from i3dr_stereo_tpu_torch.bridge.launch import launch_processing
+    from i3dr_stereo_tpu_torch.config import params
+    from i3dr_stereo_tpu_torch.core import camera
+    from i3dr_stereo_tpu_torch.io.synthetic import layered_scene
+    from i3dr_stereo_tpu_torch.mapping import (TSDFVolume, make_map_consumer,
+                                               tsdf)
+    from i3dr_stereo_tpu_torch.mapping.tsdf import to_device
+
+    rig = camera.StereoRig.synthetic(W_FULL, H_FULL, fx=580.0,
+                                     baseline_m=0.3)
+    cloud = params.PointCloudConfig(depth_max=100.0, depth_min=0.5)
+    sc = layered_scene(H_FULL, W_FULL, **SCENE)
+    L, R = raw_u8(sc.left), raw_u8(sc.right)
+    K = np.array([[rig.left.fx, 0.0, rig.left.cx],
+                  [0.0, rig.left.fy, rig.left.cy], [0, 0, 1]], np.float32)
+
+    def graph(consumer):
+        return launch_processing(
+            rig, stereo_algorithm=params.Algorithm.I3DRSGM,
+            config=flagship_cfg(params), cloud=cloud, with_crop=False,
+            warmup=False, map_consumer=consumer).graph
+
+    def publish(g, n, t0=0.0):
+        for i in range(n):
+            g.publish("/stereo/left/image_raw", t0 + i / 5.0, L)
+            g.publish("/stereo/right/image_raw", t0 + i / 5.0, R)
+
+    vol = TSDFVolume(**STEREO_VOLUME)
+    g_map = graph(make_map_consumer(vol, rig))
+    depths = []
+
+    def record(stamp, points):
+        if len(depths) == STEREO_FRAMES:       # the timed frames after them
+            return
+        xyz = np.asarray(points["xyz"]).reshape(H_FULL, W_FULL, 3)
+        valid = np.asarray(points["valid"]).reshape(H_FULL, W_FULL)
+        depths.append(np.where(valid, xyz[..., 2], 0.0).astype(np.float32))
+
+    g_map.subscribe("/stereo/points2", record)
+    g_plain = graph(None)
+    publish(g_plain, 1)                          # warm-up
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    publish(g_map, STEREO_FRAMES)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    check(vol.frames_integrated == STEREO_FRAMES
+          and launches["tsdf_integrate"] == STEREO_FRAMES,
+          f"stereo-fed map: {vol.frames_integrated} frames integrated, "
+          f"launches {launches}")
+    for name in FLAGSHIP_KERNELS:
+        check(launches[name] > 0, f"stereo-fed map: {name} did not launch")
+    z = vol.occupied_points()[:, 2]
+    deep = float(z.max()) if len(z) else float("nan")
+    bg = 580.0 * 0.3 / SCENE["background_disp"]
+    voxel = STEREO_VOLUME["voxel_size"]
+    top = bg + 3 * voxel + voxel
+    near = int((np.abs(z - bg) <= 3 * voxel).sum())
+    beyond = z > top
+    deep_px = [int((d > bg + 3 * voxel).sum()) for d in depths]
+    explained = beyond_explained(vol.occupied_points()[beyond], depths, K,
+                                 3 * voxel)
+    valid_px = [int((d > 0).sum()) for d in depths]
+    far = depths[0] > bg + 3 * voxel
+    cols = np.nonzero(far.any(axis=0))[0]
+    print(f"stereo-fed map: {int(beyond.sum())} of {len(z)} occupied voxels "
+          f"beyond {top:.4f} m; valid depth pixels deeper than "
+          f"{bg + 3 * voxel:.4f} m a frame {deep_px} of {valid_px} (frame 0: "
+          f"depths {np.sort(depths[0][far])[-5:] if far.any() else []}, "
+          f"columns {cols.min() if len(cols) else None}-"
+          f"{cols.max() if len(cols) else None}, rows "
+          f"{np.nonzero(far.any(axis=1))[0][[0, -1]] if far.any() else None})",
+          flush=True)
+    check(near > 0, f"stereo-fed map: no occupied voxel within 3 voxels of "
+          f"the background plane at {bg} m")
+    # the matcher's outliers lie behind the plane (0.18 % of valid pixels
+    # a flagship frame): a voxel beyond it must sit within the truncation
+    # of the depth measured at its own pixel, and such voxels stay few
+    check(explained == int(beyond.sum())
+          and beyond.sum() <= MAX_BEYOND_SHARE * len(z),
+          f"stereo-fed map: {int(beyond.sum())} occupied voxels beyond "
+          f"{top} m (up to {deep} m), {explained} of them within the "
+          f"truncation of their pixel's depth")
+    twin = TSDFVolume(**STEREO_VOLUME)
+    for d in depths:
+        twin.tsdf, twin.weight = tsdf.integrate(
+            twin.tsdf, twin.weight, to_device(d, twin.device), K,
+            np.eye(4, dtype=np.float32), twin.origin, twin.voxel_size,
+            twin.trunc_vox, plain=True)
+    check(torch.equal(twin.tsdf, vol.tsdf)
+          and torch.equal(twin.weight, vol.weight),
+          "stereo-fed map: the kernel-fed volume differs from the twin-fed")
+    ms = {"with": [], "without": []}
+    for i, (name, g) in enumerate((("without", g_plain), ("with", g_map),
+                                   ("with", g_map), ("without", g_plain))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        publish(g, STEREO_FRAMES, t0=10.0 * (i + 1))
+        torch.cuda.synchronize()
+        ms[name].append((time.perf_counter() - t0) * 1e3 / STEREO_FRAMES)
+    print(f"stereo-fed map [{card}]: {STEREO_FRAMES} flagship frames of "
+          f"{W_FULL}x{H_FULL} through launch_processing into 512^3 x "
+          f"{voxel} m: {len(z)} occupied voxels, {near} within 3 voxels of "
+          f"the background plane at {bg} m, deepest {deep:.4f} m; "
+          f"{int(beyond.sum())} beyond {top:.4f} m, each within the "
+          f"truncation of its pixel's measured depth (gate: all, and at most "
+          f"{MAX_BEYOND_SHARE:.1%} of the occupied); bit-equal to the twin "
+          f"fed the same depth; launches "
+          f"{launches}", flush=True)
+    print(f"timing [{card}]: the graph with the map consumer "
+          f"{', '.join(f'{x:.3f}' for x in ms['with'])} ms/frame, without "
+          f"{', '.join(f'{x:.3f}' for x in ms['without'])} (host clock, in "
+          f"turns)", flush=True)
+
+
+def beyond_explained(points, depths, K, trunc) -> int:
+    """How many of the camera-frame ``points`` (a static camera at the
+    world origin) lie within ``trunc`` of a measured depth at their pixel
+    (its 3x3 neighbourhood, against rounding) in some frame."""
+    n = 0
+    for x, y, z in np.asarray(points, np.float64):
+        u = int(round(K[0, 0] * x / z + K[0, 2]))
+        v = int(round(K[1, 1] * y / z + K[1, 2]))
+        ok = False
+        for d in depths:
+            win = d[max(v - 1, 0):v + 2, max(u - 1, 0):u + 2]
+            win = win[win > 0]
+            ok |= bool(len(win)) and float(np.abs(win - z).min()) <= trunc
+        n += ok
+    return n
+
+
+def phase_mapping(stats, card):
+    """The mapping path at 2448x2048: the two kernels against their
+    twins, the moving rig (odometry and fusion, the main path) and the
+    stereo-fed map."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from i3dr_stereo_tpu_torch.mapping import render_plane_depth
+
+    t0 = time.perf_counter()
+    poses = map_trajectory()
+    with ThreadPoolExecutor(5) as pool:
+        depths = list(pool.map(lambda T: render_plane_depth(
+            MAP_K, T, MAP_SCENE, H_FULL, W_FULL), poses))
+    print(f"mapping: {MAP_FRAMES} poses rendered at {W_FULL}x{H_FULL} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    map_kernel_tsdf(stats, card, depths, poses)
+    map_kernel_icp(stats, card, depths)
+    map_moving_rig(stats, card, depths, poses)
+    map_stereo_fed(card)
+    torch.cuda.empty_cache()
+    print(f"mapping phase done in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device (torch.cuda.is_available() is false)",
@@ -3039,6 +3558,7 @@ def main() -> int:
     phase_interp(stats, card)
     phase_bp(stats, card)
     phase_shell(stats, card)
+    phase_mapping(stats, card)
     print(f"whole run {time.perf_counter() - t_start:.1f} s", flush=True)
 
     for k, st in stats.items():

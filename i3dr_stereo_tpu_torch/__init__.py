@@ -15,9 +15,10 @@ filter, depth, point cloud and crop; the dense matchers (SGBM, BM, dense
 I3DRSGM); the engine's post-match stages (half-pel pass, occlusion
 handling, Gauss and WLS hole filling) and its facade,
 ``matchers.i3drsgm.I3DRSGM``, with the ``.param`` profiles; belief
-propagation; and the shell around the pipeline: the node graph
+propagation; the shell around the pipeline: the node graph
 (``bridge``), the stream runner, the savers and sources, the headless
-viewer and the CLI (``python -m i3dr_stereo_tpu_torch.cli``).
+viewer and the CLI (``python -m i3dr_stereo_tpu_torch.cli``); and the
+mapping consumers (``mapping``: TSDF fusion and depth odometry).
 ROADMAP.md lists what comes next.
 """
 

@@ -40,7 +40,7 @@ LAUNCHES = {"census_cost": 0, "sgm_sweep": 0, "sgm_sweep_wta": 0,
             "row_gather": 0, "remap": 0, "speckle_ccl": 0, "sgm_volume": 0,
             "fused_census_fwd": 0, "fused_bt_fwd": 0, "census_transform": 0,
             "gauss_rays": 0, "wls_lines": 0, "bp_messages": 0,
-            "bp_planes": 0}
+            "bp_planes": 0, "tsdf_integrate": 0, "icp_step": 0}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _L = ctypes.c_longlong
@@ -89,6 +89,14 @@ _SIGNATURES = {
     "i3dr_bp_messages": (_P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _I, _P),
     # data, dvals, msgs, out, B, K, H, W, jump, max_disc, inv_k, stream
     "i3dr_bp_planes": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _P),
+    # tsdf, weight, depth, X, Y, Z, H, W, K00, K02, K11, K12, rows 0-2 of
+    # T_cw (12), origin (3), voxel_size, trunc, stream
+    "i3dr_tsdf_integrate": (_P, _P, _P, _I, _I, _I, _I, _I) + (_F,) * 21
+    + (_P,),
+    # cur, prev_v, prev_n, partials, state, H, W, fx, fy, cx, cy, thr2,
+    # inv_hw, stream
+    "i3dr_icp_step": (_P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _F, _F,
+                      _P),
     # out (uint32, blocks * 256), blocks, iters, stream: the popcount-rate
     # probe (blocks * 256 * iters * 8 popcounts); no kernel of any path
     "i3dr_popc_probe": (_P, _I, _I, _P),

@@ -3,7 +3,7 @@
 The port keeps its own copies of the framework-free config and camera
 classes (importing any ``i3dr_stereo_tpu`` module imports JAX). These
 helpers turn the reference package's objects (matcher config, pyramid
-profile, rig) into the port's by reading
+profile, rig, TSDF volume) into the port's by reading
 plain attributes and numpy arrays — duck-typed, so this module imports
 nothing of the JAX package — letting both sides compute from identical
 state.
@@ -22,6 +22,7 @@ from i3dr_stereo_tpu_torch.config.params import (
 )
 from i3dr_stereo_tpu_torch.config.profile import PyramidLevelConfig, SGMProfile
 from i3dr_stereo_tpu_torch.core.camera import CameraModel, StereoRig
+from i3dr_stereo_tpu_torch.mapping.tsdf import TSDFVolume, to_device
 
 
 def config_from_reference(cfg) -> MatcherConfig:
@@ -75,3 +76,23 @@ def lean_from_backend(backend: str) -> bool:
     raise ValueError(f"the port has no counterpart of SGM backend "
                      f"{backend!r}: expected pallas, pallas_interpret, "
                      f"pallas_t or pallas_t_interpret")
+
+
+def tsdf_from_reference(volume, device="cuda") -> TSDFVolume:
+    """The port's TSDFVolume on ``device`` holding the reference
+    ``volume``'s map: its ``shape``, ``voxel_size``, ``origin``,
+    ``trunc_vox``, ``tsdf``, ``weight`` and ``frames_integrated``, read as
+    numpy (copies), so a map started by the JAX package can be continued
+    here."""
+    vol = TSDFVolume(shape=tuple(int(s) for s in volume.shape),
+                     voxel_size=float(volume.voxel_size),
+                     origin=tuple(float(o) for o in volume.origin),
+                     trunc_vox=int(volume.trunc_vox), device=device)
+    for name in ("tsdf", "weight"):
+        arr = np.array(getattr(volume, name), dtype=np.float32)
+        if arr.shape != vol.tsdf.shape:
+            raise ValueError(f"tsdf_from_reference: {name} has shape "
+                             f"{arr.shape}, the volume {vol.tsdf.shape}")
+        setattr(vol, name, to_device(arr, vol.device).contiguous())
+    vol.frames_integrated = int(volume.frames_integrated)
+    return vol
