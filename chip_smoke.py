@@ -202,15 +202,21 @@ final result line) on the first thing that is wrong:
     trajectory of ``examples/demo_mapping_moving.py`` rendered at
     2448x2048 (fx = fy = 2142): ``tsdf_integrate`` bit-equal to its twin
     in a 512^3 volume after three integrations (one pose with half the
-    grid behind the camera); ``icp_step`` against its twin for 3 steps at
-    each pyramid level (the same pixels paired, A, b and sum w r^2 within
-    1e-4 of their scales) and a whole track (1e-4 m, 5e-3 deg); both timed
-    beside their bounds, ``icp_step`` also beside ``Jw^T J`` on a ready J
-    (each step from the twin's state after the last, so both pair pixels
-    for the same pose).
+    grid behind the camera); ``icp_step`` (a whole track in one
+    cooperative launch) against its twin for 3 steps at each pyramid level
+    (the same pixels paired, A, b and sum w r^2 within 1e-4 of their
+    scales; each step from the twin's state after the last, so both pair
+    pixels for the same pose), a whole track in one launch against the
+    twins' (1e-4 m, 5e-3 deg), bit-identical over 10 runs, and tracks of
+    other levels and steps on odd sizes (a level of 0 steps leaving rmse
+    and the fraction 0); a grid larger than the card holds at once raises;
+    both kernels timed beside their bounds (the step and the track by
+    events and back to back), ``icp_step`` also beside ``Jw^T J`` on a
+    ready J.
     Then the main path, counted: ``DepthOdometry`` tracks the 10 frames
-    and each is fused into 512^3 x 0.01 m with its estimated pose (21
-    ``icp_step`` a frame, one ``tsdf_integrate``); the reference's gates
+    and each is fused into 512^3 x 0.01 m with its estimated pose (one
+    ``icp_step`` launch a tracked frame running its 21 steps, one
+    ``tsdf_integrate``); the reference's gates
     (ATE < 0.05 m, rotation < 1 deg, map IoU against the ground-truth-pose
     fusion > 0.8 in the demo's 64^3 x 0.08 m volume); the 512^3 IoU,
     ``track`` and ``integrate`` ms, peak memory and the host syncs of one
@@ -337,7 +343,7 @@ KERNEL_SYMBOLS = ("census_cost_kernel", "sgm_sweep_kernel",
                   "census_fixed_kernel", "census_any_kernel",
                   "gauss_rays_kernel", "wls_lines_kernel",
                   "bp_messages_", "bp_planes_kernel", "tsdf_kernel",
-                  "icp_terms_kernel", "icp_solve_kernel")
+                  "icp_track_kernel")
 # accuracy_bench.py:sgbm_1280's scene and size
 H_SGBM, W_SGBM = 1024, 1280
 SGBM_SCENE = dict(max_disp=120, background_disp=8, layers=5, seed=21)
@@ -3065,8 +3071,8 @@ TSDF_OPS_PER_VOXEL = 45   # float operations of tsdf_integrate a voxel
 ICP_OPS_PER_PIXEL = 100   # of icp_step a pixel
 # the bytes an ICP iteration needs a pixel, as the reference's _icp_level
 # reads them: the current vertex (12) and valid flag (1), the previous
-# vertex and normal (12 + 12) and ok flag (1) at the hit pixel; the packed
-# float4 maps the kernel reads are 48 (padding and flags as floats)
+# vertex and normal (12 + 12) and ok flag (1) at the hit pixel; the kernel
+# reads 48 (the current map's 16 in order, a hit's 32-byte record)
 ICP_BYTES_PER_PIXEL = 38
 
 
@@ -3164,9 +3170,23 @@ def icp_compare(a, b, label) -> dict:
     return err
 
 
+def twin_track_compare(tk, tp, label):
+    """A track's pose through the kernel against the twins': translation
+    and rotation within TOL_TRACK_M / TOL_TRACK_DEG; returns both."""
+    a = tk[:16].reshape(4, 4).cpu().numpy()
+    b = tp[:16].reshape(4, 4).cpu().numpy()
+    dt = float(np.linalg.norm(a[:3, 3] - b[:3, 3]))
+    dr = rot_diff_deg(a[:3, :3], b[:3, :3])
+    check(dt < TOL_TRACK_M and dr < TOL_TRACK_DEG,
+          f"{label}, kernel vs twins: {dt} m, {dr} deg")
+    return dt, dr
+
+
 def map_kernel_icp(stats, card, depths):
-    """icp_step vs its twin at each level of a 2448x2048 pair and a whole
-    track; timed at level 0 beside Jw^T J on a ready J."""
+    """icp_step vs its twin at each level of a 2448x2048 pair, a whole
+    track in one launch, its reruns, other levels and steps on odd sizes;
+    timed at level 0 beside Jw^T J on a ready J."""
+    from i3dr_stereo_tpu_torch import _build
     from i3dr_stereo_tpu_torch.mapping import odometry as odo
 
     prev = odo.pack_maps(torch.tensor(depths[0], device=DEVICE), MAP_K, 3)
@@ -3180,8 +3200,9 @@ def map_kernel_icp(stats, card, depths):
         for it in range(3):
             # both from the same state: the twin's after the last step
             sk = sp.clone()
-            sp = odo.icp_step(cur[li][0], *prev[li], cam, sp, 0.5, plain=True)
-            odo.icp_step(cur[li][0], *prev[li], cam, sk, 0.5)
+            sp = odo.icp_step(cur[li][0], prev[li][1], cam, sp, 0.5,
+                              plain=True)
+            odo.icp_step(cur[li][0], prev[li][1], cam, sk, 0.5)
             torch.cuda.synchronize()
             err = icp_compare(sk, sp, f"level {li} step {it}")
             worst = max(worst, err["A"], err["b"], err["sum_wr2"])
@@ -3190,36 +3211,89 @@ def map_kernel_icp(stats, card, depths):
               f"{TOL_ICP_REL:g} of the twin, same pixels (sum w "
               f"{int(float(sk[61]))}); last {json.dumps(err)}", flush=True)
     T0 = torch.eye(4, device=DEVICE)
+    _build.reset_launches()
     tk = odo._track(prev, cur, MAP_K, T0)
+    torch.cuda.synchronize()
+    check(_build.LAUNCHES["icp_step"] == 1,
+          f"a track launched icp_step {_build.LAUNCHES['icp_step']} times")
     tp = odo._track(prev, cur, MAP_K, T0, plain=True)
-    a = tk[:16].reshape(4, 4).cpu().numpy()
-    b = tp[:16].reshape(4, 4).cpu().numpy()
-    dt = float(np.linalg.norm(a[:3, 3] - b[:3, 3]))
-    dr = rot_diff_deg(a[:3, :3], b[:3, :3])
-    check(dt < TOL_TRACK_M and dr < TOL_TRACK_DEG,
-          f"track, kernels vs twins: {dt} m, {dr} deg")
-    print(f"icp_step: a whole track (4 / 7 / 10 steps) within {dt:.3g} m and "
-          f"{dr:.3g} deg of the twins' (tolerance {TOL_TRACK_M:g} m, "
-          f"{TOL_TRACK_DEG:g} deg); worst relative difference of a step "
-          f"{worst:.3g}", flush=True)
+    dt, dr = twin_track_compare(tk, tp, "track")
+    n0 = cur[0][0].shape[0] * cur[0][0].shape[1]
+    print(f"icp_step: a whole track (4 / 7 / 10 steps) in one launch within "
+          f"{dt:.3g} m and {dr:.3g} deg of the twins' (tolerance "
+          f"{TOL_TRACK_M:g} m, {TOL_TRACK_DEG:g} deg); worst relative "
+          f"difference of a step {worst:.3g}; grid "
+          f"{odo._grid(tk.device.index, n0)} blocks", flush=True)
+    reruns = [odo._track(prev, cur, MAP_K, T0) for _ in range(10)]
+    torch.cuda.synchronize()
+    differ = sum(not torch.equal(r, tk) for r in reruns)
+    check(not differ, f"icp_step: {differ} of 10 reruns of a track differ "
+          f"from the first")
+    print("icp_step: 10 reruns of the track bit-identical to the first",
+          flush=True)
+    # other levels and steps on odd sizes; a level of 0 steps
+    for (h, w), levels, iters in (((2047, 2445), 4, (2, 0, 3, 5)),
+                                  ((1001, 1333), 3, (3, 2, 0)),
+                                  ((2048, 2448), 2, (0, 4))):
+        pv = odo.pack_maps(torch.tensor(depths[0][:h, :w], device=DEVICE),
+                           MAP_K, levels)
+        cv = odo.pack_maps(torch.tensor(depths[1][:h, :w], device=DEVICE),
+                           MAP_K, levels)
+        tk = odo._track(pv, cv, MAP_K, T0, iters)
+        tp = odo._track(pv, cv, MAP_K, T0, iters, plain=True)
+        dt, dr = twin_track_compare(tk, tp, f"track {w}x{h} {iters}")
+        if iters[0] == 0:
+            check(float(tk[16]) == 0.0 and float(tk[17]) == 0.0,
+                  f"track {iters}: rmse {float(tk[16])}, fraction "
+                  f"{float(tk[17])} after a finest level of 0 steps")
+        else:
+            check(float(tk[17]) == float(tp[17]),
+                  f"track {iters}: fraction {float(tk[17])} against the "
+                  f"twins' {float(tp[17])}")
+        print(f"icp_step: track {w}x{h}, {levels} levels, steps {iters}: "
+              f"within {dt:.3g} m and {dr:.3g} deg of the twins'; rmse "
+              f"{float(tk[16]):.4g}, fraction {float(tk[17]):.4g}",
+              flush=True)
+    # a grid the card cannot hold at once is refused, not cut into steps
+    maps, dims, cams, thr2 = odo.launch_table(
+        odo.track_levels(prev, cur, MAP_K, (1,)), 0.5)
+    state = torch.zeros(odo.STATE, device=DEVICE)
+    too_many = odo._grid(state.device.index, 1 << 30) + 1
+    part = torch.empty(2 * too_many * 32, device=DEVICE)
+    n_before = _build.LAUNCHES["icp_step"]
+    try:
+        _build.launch("i3dr_icp_track", "icp_step", state.device, len(dims),
+                      maps.ctypes.data, dims.ctypes.data, cams.ctypes.data,
+                      float(thr2), part.data_ptr(), state.data_ptr(),
+                      too_many, _build.stream_of(state))
+        refused = None
+    except RuntimeError as e:
+        refused = str(e)
+    check(refused is not None and _build.LAUNCHES["icp_step"] == n_before,
+          f"a cooperative grid of {too_many} blocks was not refused")
+    print(f"icp_step: a grid of {too_many} blocks raises: {refused}",
+          flush=True)
     st = stats["icp_step"]
     st["err"] = worst
     Kl = odo.level_intrinsics(MAP_K, 0)
     cam = (Kl[0, 0], Kl[1, 1], Kl[0, 2], Kl[1, 2])
     state = torch.zeros(odo.STATE, device=DEVICE)
     state[:16] = torch.eye(4, device=DEVICE).reshape(-1)
-    scratch = torch.empty(odo.ICP_PARTIALS, device=DEVICE)
     ready = state.clone()
 
     def step():
-        return odo.icp_step(cur[0][0], *prev[0], cam, state, 0.5,
-                            scratch=scratch)
+        return odo.icp_step(cur[0][0], prev[0][1], cam, state, 0.5)
+
+    def track():
+        return odo._track(prev, cur, MAP_K, T0)
 
     st["ms"] = gpu_ms(step)
     st["back_to_back_ms"] = back_to_back_ms(step)
     st["plain_ms"] = gpu_ms(lambda: odo.icp_step(
-        cur[0][0], *prev[0], cam, ready, 0.5, plain=True), iters=5, warmup=1)
-    track_ms = gpu_ms(lambda: odo._track(prev, cur, MAP_K, T0), iters=5)
+        cur[0][0], prev[0][1], cam, ready, 0.5, plain=True), iters=5,
+        warmup=1)
+    track_ms = gpu_ms(track, iters=10)
+    st["track_back_to_back_ms"] = back_to_back_ms(track, iters=20)
     plain_track_ms = gpu_ms(lambda: odo._track(prev, cur, MAP_K, T0,
                                                plain=True), iters=2)
     # the yardstick: A = Jw^T J on a ready (N, 6) J, one cuBLAS call
@@ -3230,7 +3304,6 @@ def map_kernel_icp(stats, card, depths):
     st["jtj_back_to_back_ms"] = back_to_back_ms(lambda: Jw.T @ J)
     st["track_ms"] = track_ms
     st["plain_track_ms"] = plain_track_ms
-    n0 = cur[0][0].shape[0] * cur[0][0].shape[1]
     set_bound(stats, "icp_step", ICP_BYTES_PER_PIXEL * n0,
               ICP_OPS_PER_PIXEL * n0)
     npix = [cur[li][0].shape[0] * cur[li][0].shape[1] for li in range(3)]
@@ -3243,9 +3316,10 @@ def map_kernel_icp(stats, card, depths):
           f"{st['bound_ms']:.4f} ms ({st['bound_by']}); twin "
           f"{st['plain_ms']:.3f} ms; Jw^T J on a ready J {st['jtj_ms']:.4f} "
           f"ms ({st['jtj_back_to_back_ms']:.4f} back to back); a whole track "
-          f"on ready maps {track_ms:.3f} ms (bound {st['track_bound_ms']:.4f}"
-          f", {track_bytes / 1e9:.3f} GB), twins {plain_track_ms:.2f} ms",
-          flush=True)
+          f"on ready maps {track_ms:.4f} ms by events, "
+          f"{st['track_back_to_back_ms']:.4f} back to back (bound "
+          f"{st['track_bound_ms']:.4f}, {track_bytes / 1e9:.3f} GB), twins "
+          f"{plain_track_ms:.2f} ms", flush=True)
 
 
 def occupancy_iou(a, b) -> float:
@@ -3278,7 +3352,12 @@ def map_moving_rig(stats, card, depths, poses) -> None:
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"moving rig launches ({MAP_FRAMES} frames of {W_FULL}x{H_FULL}): "
           f"{launches}", flush=True)
-    want = (MAP_FRAMES - 1) * sum(odo.iters)
+    # one launch a tracked frame runs every step of its track
+    want = MAP_FRAMES - 1
+    steps = want * sum(odo.iters)
+    print(f"moving rig: icp_step {launches['icp_step']} launches running "
+          f"{steps} steps ({want} tracked frames x {sum(odo.iters)})",
+          flush=True)
     check(launches["icp_step"] == want
           and launches["tsdf_integrate"] == MAP_FRAMES,
           f"moving rig: icp_step {launches['icp_step']} (want {want}), "

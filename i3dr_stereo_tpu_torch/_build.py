@@ -9,9 +9,10 @@ this file (listed in ``.gitignore``), keyed by a hash of the sources and
 flags, so an edited kernel is rebuilt and an unchanged one is reused.
 
 Every C entry point launches one kernel on the stream it is given and
-returns ``cudaGetLastError()``; :func:`launch` raises on a non-zero code
-and otherwise adds one to that kernel's count in :data:`LAUNCHES`, so a
-run can show that its main path went through the kernels.
+returns ``cudaGetLastError()`` (``i3dr_icp_grid``, which sizes the ICP
+kernel's grid, launches nothing); :func:`launch` raises on a non-zero
+code and otherwise adds one to that kernel's count in :data:`LAUNCHES`,
+so a run can show that its main path went through the kernels.
 
 Nothing here runs at import: this module is imported on machines with no
 CUDA toolkit, where only the plain torch twins of the kernels run.
@@ -93,10 +94,11 @@ _SIGNATURES = {
     # T_cw (12), origin (3), voxel_size, trunc, stream
     "i3dr_tsdf_integrate": (_P, _P, _P, _I, _I, _I, _I, _I) + (_F,) * 21
     + (_P,),
-    # cur, prev_v, prev_n, partials, state, H, W, fx, fy, cx, cy, thr2,
-    # inv_hw, stream
-    "i3dr_icp_step": (_P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _F, _F,
-                      _P),
+    # levels, maps (2 a level), dims (H, W, steps), cams (fx, fy, cx, cy,
+    # inv_hw), thr2, partials, state, blocks, stream: a whole ICP track
+    "i3dr_icp_track": (_I, _P, _P, _P, _F, _P, _P, _I, _P),
+    # max_pixels, out blocks: the track kernel's cooperative grid (no launch)
+    "i3dr_icp_grid": (_L, _P),
     # out (uint32, blocks * 256), blocks, iters, stream: the popcount-rate
     # probe (blocks * 256 * iters * 8 popcounts); no kernel of any path
     "i3dr_popc_probe": (_P, _I, _I, _P),

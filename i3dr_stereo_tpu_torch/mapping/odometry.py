@@ -7,18 +7,22 @@ Projective point-to-plane ICP on a depth pyramid, coarse to fine (the
 KinectFusion tracker): transform the current vertex map, project it into
 the previous frame, read the hit pixel's vertex and normal, and take one
 Gauss-Newton step on the 6-DoF normal equations, ``(4, 7, 10)`` steps at
-levels ``(0, 1, 2)``. On the card each step is the ``icp_step`` kernel
-(``csrc/icp_step.cu``: the sums, the damped 6x6 solve and the pose update
-in two launches, no host sync; the reference's step is XLA, not a Pallas
-kernel); on the CPU, or with ``plain=True``, the plain torch twin
-:func:`icp_step_plain`. A whole :func:`estimate_motion` copies to the host
-once, at its end: the pose, the rmse and the inlier fraction together.
+levels ``(0, 1, 2)``. On the card a whole track is one launch of the
+``icp_step`` kernel (``csrc/icp_step.cu``: a cooperative grid runs every
+step of every level, each step's sums, damped 6x6 solve and pose update,
+with no host sync; the reference's step is XLA, not a Pallas kernel); on
+the CPU, or with ``plain=True``, the plain torch twin
+:func:`icp_step_plain` runs step by step. A whole :func:`estimate_motion`
+copies to the host once, at its end: the pose, the rmse and the inlier
+fraction together.
 
-The maps take the port's packed layout: per pyramid level a vertex map
-``(H, W, 4)`` = [x, y, z, valid] and a normal map ``(H, W, 4)`` = [nx,
-ny, nz, ok], ok being a valid normal of a valid pixel. The reference's
-normals wrap around the image border (``jnp.roll``); here a normal on the
-1-pixel border is not valid (a reference fault repaired).
+The maps take the port's packed layout: per pyramid level the current
+map ``(H, W, 4)`` = [x, y, z, valid], read in order, and the record
+``(H, W, 8)`` = [x, y, z, valid, nx, ny, nz, ok] that the next frame
+gathers from (one 32-byte record a pixel), ok being a valid normal of a
+valid pixel. The reference's normals wrap around the image border
+(``jnp.roll``); here a normal on the 1-pixel border is not valid (a
+reference fault repaired).
 
 Pose conventions: ``T_cw`` maps world -> camera, ``T_wc = inv(T_cw)``;
 :func:`estimate_motion` returns ``T_pc`` mapping current-frame points into
@@ -27,7 +31,9 @@ the previous camera frame, so ``T_wc_cur = T_wc_prev @ T_pc``.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import functools
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -39,8 +45,10 @@ from i3dr_stereo_tpu_torch.mapping.tsdf import to_device
 # the step's state, float32: T (0-15, row-major), rmse (16), inlier
 # fraction (17), A undamped (18-53), b (54-59), sum w r^2 (60), sum w (61)
 STATE = 64
-# the kernel's scratch for its blocks' partial sums, in floats
-ICP_PARTIALS = 1024 * 32
+# the levels one launch of the kernel takes, at most
+MAX_LEVELS = 8
+# floats of one block's partial sums in the kernel's scratch
+_SLOT = 32
 
 
 def _backproject(depth: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
@@ -150,8 +158,11 @@ def level_intrinsics(K, level: int) -> np.ndarray:
 
 
 def pack_maps(depth: torch.Tensor, K, levels: int) -> List[tuple]:
-    """Per pyramid level, finest first: the packed (vertex, normal) maps
-    of a depth image, each (H, W, 4) float32 on depth's device."""
+    """Per pyramid level, finest first, the packed maps of a depth image
+    on its device: ``(cur, rec)``, float32, cur ``(H, W, 4)`` = [x, y, z,
+    valid] (read in order where this frame is the current one) and rec
+    ``(H, W, 8)`` = [x, y, z, valid, nx, ny, nz, ok] (gathered where it is
+    the previous one)."""
     maps = []
     d = depth
     for li in range(levels):
@@ -161,11 +172,17 @@ def pack_maps(depth: torch.Tensor, K, levels: int) -> List[tuple]:
         valid = d > 0
         V = _backproject(d, Kl)
         N, ok = _normals(V, valid)
-        maps.append((torch.cat([V, valid[..., None].to(V.dtype)], -1),
-                     torch.cat([N, (ok & valid)[..., None].to(N.dtype)], -1)))
+        cur = torch.cat([V, valid[..., None].to(V.dtype)], -1)
+        nrm = torch.cat([N, (ok & valid)[..., None].to(N.dtype)], -1)
+        # one copy of 16-byte halves: a 3-way concatenation of the narrow
+        # fields costs the card 2.8x as much at 2448x2048
+        # (kernel_probes/probe10.py)
+        maps.append((cur, torch.stack([cur, nrm], -2).reshape(
+            *cur.shape[:2], 8)))
     return maps
 
 
+@functools.lru_cache(maxsize=256)
 def _step_scalars(dist_thresh: float, H: int, W: int):
     """The step's float32 constants: dist_thresh^2 and 1 / (H W) (XLA
     multiplies by the reciprocal of a constant divisor)."""
@@ -173,11 +190,11 @@ def _step_scalars(dist_thresh: float, H: int, W: int):
             np.float32(1.0) / np.float32(H * W))
 
 
-def icp_step_plain(cur: torch.Tensor, prev_v: torch.Tensor,
-                   prev_n: torch.Tensor, cam, state: torch.Tensor,
-                   dist_thresh: float) -> torch.Tensor:
+def icp_step_plain(cur: torch.Tensor, prev: torch.Tensor, cam,
+                   state: torch.Tensor, dist_thresh: float) -> torch.Tensor:
     """Plain torch twin of the ``icp_step`` kernel: one Gauss-Newton step
-    of the reference's ``_icp_level`` on packed maps; returns the new
+    of the reference's ``_icp_level`` on packed maps (the current frame's
+    ``cur`` and the previous frame's record ``prev``); returns the new
     state (``STATE`` floats: T, rmse, frac, A, b, the two sums).
 
     ``cam`` = (fx, fy, cx, cy) of the level (float32 values). The
@@ -200,9 +217,8 @@ def icp_step_plain(cur: torch.Tensor, prev_v: torch.Tensor,
     vi = torch.round(v).clamp(-1, H).to(torch.int64)
     inb = (p[..., 2] > 1e-6) & (ui >= 0) & (ui < W) & (vi >= 0) & (vi < H)
     flat = vi.clamp(0, H - 1) * W + ui.clamp(0, W - 1)
-    q = prev_v.reshape(-1, 4)[flat][..., :3]
-    nn = prev_n.reshape(-1, 4)[flat]
-    n, hit_ok = nn[..., :3], nn[..., 3] > 0
+    hit = prev.reshape(-1, 8)[flat]
+    q, n, hit_ok = hit[..., :3], hit[..., 4:7], hit[..., 7] > 0
     d = p - q
     r = _dot3(d, n)
     thr2, inv_hw = _step_scalars(dist_thresh, H, W)
@@ -229,77 +245,147 @@ def icp_step_plain(cur: torch.Tensor, prev_v: torch.Tensor,
     return out
 
 
-def icp_step(cur: torch.Tensor, prev_v: torch.Tensor, prev_n: torch.Tensor,
-             cam, state: torch.Tensor, dist_thresh: float, *,
-             plain: bool = False,
-             scratch: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """One Gauss-Newton step (the arguments of :func:`icp_step_plain`). A
-    CPU tensor, or ``plain=True``, runs the twin and returns a new state;
-    a CUDA tensor launches the kernel, which rewrites ``state`` in place
-    and returns it, or raises. ``scratch``: ``ICP_PARTIALS`` float32 on the
-    card, reused across steps (allocated when not given)."""
-    if plain or cur.device.type == "cpu":
-        return icp_step_plain(cur, prev_v, prev_n, cam, state, dist_thresh)
-    _build.require_cuda(cur, prev_v, prev_n, state)
-    H, W = cur.shape[:2]
-    for m in (cur, prev_v, prev_n):
-        if m.dtype != torch.float32 or tuple(m.shape) != (H, W, 4):
-            raise ValueError("icp_step takes (H, W, 4) float32 maps of one "
-                             "shape")
-    if state.dtype != torch.float32 or state.numel() < STATE:
-        raise ValueError(f"icp_step takes a float32 state of {STATE}")
-    if scratch is None:
-        scratch = torch.empty(ICP_PARTIALS, dtype=torch.float32,
-                              device=cur.device)
-    _build.require_cuda(scratch)
-    if scratch.dtype != torch.float32 or scratch.numel() < ICP_PARTIALS:
-        raise ValueError(f"icp_step takes a float32 scratch of "
-                         f"{ICP_PARTIALS}")
-    thr2, inv_hw = _step_scalars(dist_thresh, H, W)
-    _build.launch("i3dr_icp_step", "icp_step", cur.device, cur.data_ptr(),
-                  prev_v.data_ptr(), prev_n.data_ptr(), scratch.data_ptr(),
-                  state.data_ptr(), H, W, *(float(v) for v in cam),
-                  float(thr2), float(inv_hw), _build.stream_of(cur))
+def check_level(cur: torch.Tensor, prev: torch.Tensor) -> None:
+    """Raise ``ValueError`` unless ``cur`` is an (H, W, 4) and ``prev`` an
+    (H, W, 8) float32 map, contiguous, on one device, 16- and 32-byte
+    aligned (the kernel reads a pixel as float4s and a record as one
+    32-byte sector)."""
+    cs, ps = cur.shape, prev.shape
+    if (cur.dtype != torch.float32 or prev.dtype != torch.float32
+            or len(cs) != 3 or cs[2] != 4 or cs[0] < 1 or cs[1] < 1
+            or ps != (cs[0], cs[1], 8)):
+        raise ValueError(f"an ICP level takes float32 maps (H, W, 4) and "
+                         f"(H, W, 8), got {cur.dtype} {tuple(cs)} and "
+                         f"{prev.dtype} {tuple(ps)}")
+    if not (cur.is_contiguous() and prev.is_contiguous()) \
+            or cur.device != prev.device:
+        raise ValueError("an ICP level's maps are contiguous, on one device")
+    if cur.data_ptr() % 16 or prev.data_ptr() % 32:
+        raise ValueError("an ICP level's maps are 16- (cur) and 32-byte "
+                         "(prev) aligned")
+
+
+def _check_state(state: torch.Tensor) -> None:
+    if (state.dtype != torch.float32 or state.numel() < STATE
+            or not state.is_contiguous()):
+        raise ValueError(f"ICP takes a contiguous float32 state of {STATE}")
+
+
+def launch_table(levels, dist_thresh: float):
+    """What one launch of the kernel takes for ``levels`` [(cur, prev, cam,
+    steps), ...] in the order they run: the maps' addresses (n, 2) uint64,
+    (H, W, steps) (n, 3) int32, (fx, fy, cx, cy, 1 / (H W)) (n, 5)
+    float32 and dist_thresh^2 in float32."""
+    if len(levels) > MAX_LEVELS:
+        raise ValueError(f"one ICP launch takes at most {MAX_LEVELS} "
+                         f"levels, got {len(levels)}")
+    maps, dims, cams = [], [], []
+    for cur, prev, cam, steps in levels:
+        check_level(cur, prev)
+        if steps < 0:
+            raise ValueError(f"a level takes 0 or more steps, got {steps}")
+        H, W = cur.shape[:2]
+        maps += (cur.data_ptr(), prev.data_ptr())
+        dims += (H, W, steps)
+        cams += (*cam, _step_scalars(dist_thresh, H, W)[1])
+    return (np.array(maps, np.uint64).reshape(-1, 2),
+            np.array(dims, np.int32).reshape(-1, 3),
+            np.array(cams, np.float32).reshape(-1, 5),
+            _step_scalars(dist_thresh, 1, 1)[0])
+
+
+@functools.lru_cache(maxsize=None)
+def _grid(device_index: int, max_pixels: int) -> int:
+    """The kernel's cooperative grid on this card for this largest level
+    (its C entry asks the card's occupancy): once per card and shape."""
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        err = _build.library().i3dr_icp_grid(max_pixels,
+                                             ctypes.addressof(blocks))
+    if err:
+        raise RuntimeError(f"i3dr_icp_grid: CUDA error {err}")
+    return blocks.value
+
+
+def icp_track(levels, state: torch.Tensor, dist_thresh: float, *,
+              plain: bool = False) -> torch.Tensor:
+    """Every step of ``levels`` [(cur, prev, cam, steps), ...] in the order
+    they run (coarse to fine), rmse and the fraction zeroed where each
+    level starts. A CUDA state launches the ``icp_step`` kernel once for
+    all of them, which rewrites ``state`` in place and returns it; a grid
+    the card cannot hold at once, or a failed build, raises (nothing falls
+    back). A CPU state, or ``plain=True``, runs the twin step by step and
+    returns a new state."""
+    _check_state(state)
+    if plain or state.device.type == "cpu":
+        for cur, prev, cam, steps in levels:
+            check_level(cur, prev)
+            state = state.clone()
+            state[16:18] = 0.0
+            for _ in range(steps):
+                state = icp_step_plain(cur, prev, cam, state, dist_thresh)
+        return state
+    _build.require_cuda(state, *(m for lv in levels for m in lv[:2]))
+    maps, dims, cams, thr2 = launch_table(levels, dist_thresh)
+    blocks = _grid(state.device.index,
+                   max((int(h) * int(w) for h, w, _ in dims), default=1))
+    partials = torch.empty(2 * blocks * _SLOT, dtype=torch.float32,
+                           device=state.device)
+    _build.launch("i3dr_icp_track", "icp_step", state.device, len(levels),
+                  maps.ctypes.data, dims.ctypes.data, cams.ctypes.data,
+                  float(thr2), partials.data_ptr(), state.data_ptr(), blocks,
+                  _build.stream_of(state))
     return state
+
+
+def icp_step(cur: torch.Tensor, prev: torch.Tensor, cam, state: torch.Tensor,
+             dist_thresh: float, *, plain: bool = False) -> torch.Tensor:
+    """One Gauss-Newton step (the arguments of :func:`icp_step_plain`):
+    :func:`icp_track` of one level of one step."""
+    return icp_track([(cur, prev, cam, 1)], state, dist_thresh, plain=plain)
 
 
 def _icp_level(prev_maps, cur_maps, cam, state: torch.Tensor, iters: int,
                dist_thresh, *, plain: bool = False) -> torch.Tensor:
     """Gauss-Newton point-to-plane iterations at one pyramid level (the
     reference's ``_icp_level`` on packed maps): ``prev_maps`` /
-    ``cur_maps`` are (vertex, normal) maps; the state's T is the estimate
-    of T_pc. Returns the state after ``iters`` steps; with no step its
-    rmse and fraction are 0, as the reference's."""
-    state[16:18] = 0.0
-    cur, _ = cur_maps
-    prev_v, prev_n = prev_maps
-    scratch = None
-    if not plain and cur.device.type == "cuda":
-        scratch = torch.empty(ICP_PARTIALS, dtype=torch.float32,
-                              device=cur.device)
-    for _ in range(iters):
-        state = icp_step(cur, prev_v, prev_n, cam, state, dist_thresh,
-                         plain=plain, scratch=scratch)
-    return state
+    ``cur_maps`` are a level's (cur, rec) maps of each frame; the state's
+    T is the estimate of T_pc. Returns the state after ``iters`` steps;
+    with no step its rmse and fraction are 0, as the reference's."""
+    return icp_track([(cur_maps[0], prev_maps[1], cam, iters)], state,
+                     dist_thresh, plain=plain)
+
+
+def track_levels(prev_pyr, cur_pyr, K, iters: Tuple[int, ...]) -> list:
+    """The levels a track runs, coarse to fine: (cur, prev, cam, steps)
+    of each, with the level's intrinsics and ``iters`` indexed by pyramid
+    level (0 = finest; its last entry for deeper levels): more steps at
+    the cheap coarse levels, a few polish steps at full resolution."""
+    Kt = tuple(np.asarray(K, np.float32).ravel().tolist())
+    return [(cur_pyr[li][0], prev_pyr[li][1], _level_cam(Kt, li),
+             iters[min(li, len(iters) - 1)])
+            for li in range(len(cur_pyr) - 1, -1, -1)]
+
+
+@functools.lru_cache(maxsize=64)
+def _level_cam(Kt: tuple, li: int) -> tuple:
+    """(fx, fy, cx, cy) of pyramid level ``li`` of the flat intrinsics."""
+    Kl = level_intrinsics(np.array(Kt, np.float32).reshape(3, 3), li)
+    return (Kl[0, 0], Kl[1, 1], Kl[0, 2], Kl[1, 2])
 
 
 def _track(prev_pyr, cur_pyr, K, T_init: torch.Tensor,
            iters: Tuple[int, ...] = (4, 7, 10), dist_thresh=0.5, *,
            plain: bool = False) -> torch.Tensor:
     """Coarse-to-fine projective ICP over two frames' packed pyramids
-    (finest first). Returns the state (T_pc, rmse, inlier fraction, the
-    last step's sums) on the device; nothing is copied to the host."""
+    (finest first): one launch on the card, the twin step by step on the
+    CPU or with ``plain=True``. Returns the state (T_pc, rmse, inlier
+    fraction, the last step's sums) on the device; nothing is copied to
+    the host."""
     state = torch.zeros(STATE, dtype=torch.float32, device=T_init.device)
     state[:16] = T_init.reshape(-1)
-    for li in range(len(cur_pyr) - 1, -1, -1):           # coarse -> fine
-        Kl = level_intrinsics(K, li)
-        cam = (Kl[0, 0], Kl[1, 1], Kl[0, 2], Kl[1, 2])
-        # iters is indexed by pyramid level (0 = finest): more steps at the
-        # cheap coarse levels, a few polish steps at full resolution
-        state = _icp_level(prev_pyr[li], cur_pyr[li], cam, state,
-                           iters[min(li, len(iters) - 1)], dist_thresh,
-                           plain=plain)
-    return state
+    return icp_track(track_levels(prev_pyr, cur_pyr, K, iters), state,
+                     dist_thresh, plain=plain)
 
 
 def _readout(state: torch.Tensor):

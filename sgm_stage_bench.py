@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """The flagship SGM stage, the census-cost kernels, the volume SGM
 aggregation, the speckle filter, the BT forward pass, the row gather, the
-post-match kernels, both flagship frames, the SGBM frames and the
-post-match frames of one or more checkouts of the PyTorch + CUDA port,
-measured in turns on one NVIDIA GPU.
+post-match kernels, both flagship frames, the SGBM frames, the
+post-match frames and the mapping path's ICP of one or more checkouts of
+the PyTorch + CUDA port, measured in turns on one NVIDIA GPU.
 
     python3 sgm_stage_bench.py [--only SECTION,...] [ROOT ...]
 
@@ -15,7 +15,7 @@ process of its own, builds its own kernels and prints one JSON line; the
 scene, the level-0 inputs, the timing and the profile window are
 ``chip_smoke.py``'s of this checkout, so only the package differs.
 
-Per ROOT, with the card's name and power limit, in thirteen sections
+Per ROOT, with the card's name and power limit, in fourteen sections
 (``--only`` names those to run, comma-separated; all by default):
 
 - ``level0``: level 0 of the flagship pyramid (2448x2048 padded to
@@ -85,6 +85,19 @@ Per ROOT, with the card's name and power limit, in thirteen sections
   disparities): ms/frame (median of 5), the five-frame profile (busy,
   idle share, activities, ``bp_messages`` and ``bp_planes`` time a
   frame) and a digest of the disparity and valid mask;
+- ``icp``: the ICP of ``chip_smoke.py``'s moving rig (frames 0 and 1 at
+  2448x2048, packed by the checkout's ``pack_maps`` into 3 levels): one
+  ``icp_step`` call at each level (ms by events, median of 10, and a
+  call of 50 back to back), a whole track on the ready maps (4 / 7 / 10
+  steps, ``_track``: by events, median of 10, and a track of 20 back to
+  back), the host's time to issue a step call and a track call (no sync
+  among 200), sum w of the first level-0 step from the identity (held
+  equal across roots: the same pixels pair), a digest of the track's
+  state (reported, not held equal: the sums' order is the kernel's),
+  ``pack_maps`` of a frame already on the card (ms by events, median of
+  10) and ``DepthOdometry.track`` over the rig's 10 frames forward, back
+  and forward again with numpy depth in (ms a frame by events, the median
+  of the 29 tracked);
 - ``postmatch_frames``: the engine facade at ``quick_profile()``
   (rectified float32 in) and the flagship frame with ``interp``,
   occlusion detection and fill: ms/frame (median of 10), the five-frame
@@ -131,16 +144,16 @@ POSTMATCH_SYMBOLS = {"gauss": "gauss_rays", "wls": "wls_lines"}
 BP_SYMBOLS = {"bp_messages": "bp_messages_", "bp_planes": "bp_planes_"}
 SECTIONS = ("level0", "lean_level0", "sgbm_aggregate", "speckle", "bt_fwd",
             "row_gather", "census", "remap", "frames", "gauss", "wls",
-            "postmatch_frames", "bp")
+            "postmatch_frames", "bp", "icp")
 DIGESTS = ("frame_digest", "lean_frame_digest", "sgbm_frame_digest",
            "lean_sgbm1_frame_digest", "level0_digest", "lean_level0_digest",
            "lean_level0_sgm_digest", "sgbm_aggregate_digest",
            "speckle_digest", "bt_fwd_int16_digest", "bt_fwd_float32_digest",
            "row_gather_digest", "census_digest", "remap_digest",
            "gauss_digest", "facade_frame_digest", "bp_messages_digest",
-           "bp_frame_digest", "csbp_frame_digest")
+           "bp_frame_digest", "csbp_frame_digest", "icp_pairs_digest")
 # reported, not held equal across roots (see the docstring)
-ROUNDING_DIGESTS = ("wls_digest", "interp_frame_digest")
+ROUNDING_DIGESTS = ("wls_digest", "interp_frame_digest", "icp_track_digest")
 
 
 def digest(*tensors) -> str:
@@ -212,6 +225,8 @@ def measure(root: Path, sections) -> dict:
         postmatch_frames(out, cs, card, root.name)
     if "bp" in sections:
         bp(out, cs, card, root.name)
+    if "icp" in sections:
+        icp(out, cs)
     return out
 
 
@@ -591,6 +606,88 @@ def bp(out, cs, card, label):
                 ms for k, ms in prof["names_ms"].items() if sym in k)
         del pipe, res
         torch.cuda.empty_cache()
+
+
+def host_us(fn, n=200) -> float:
+    """The host's time to issue one call of ``fn`` (no sync among n)."""
+    import time
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return t
+
+
+def icp(out, cs):
+    """The moving rig's ICP: a step at each level, a whole track, the
+    tracker over the rig's frames. A checkout of one of two layouts: the
+    two (H, W, 4) maps of the previous frame and a step a launch, or the
+    record and a track a launch (``odometry.icp_track``)."""
+    import statistics
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+    from i3dr_stereo_tpu_torch.mapping import (DepthOdometry,
+                                               render_plane_depth)
+    from i3dr_stereo_tpu_torch.mapping import odometry as odo
+
+    with ThreadPoolExecutor(5) as pool:
+        depths = list(pool.map(lambda T: render_plane_depth(
+            cs.MAP_K, T, cs.MAP_SCENE, cs.H_FULL, cs.W_FULL),
+            cs.map_trajectory()))
+    prev, cur = (odo.pack_maps(torch.tensor(d, device=cs.DEVICE), cs.MAP_K,
+                               3) for d in depths[:2])
+    one_launch = hasattr(odo, "icp_track")
+    scratch = None if one_launch else torch.empty(odo.ICP_PARTIALS,
+                                                  device=cs.DEVICE)
+    state = torch.zeros(odo.STATE, device=cs.DEVICE)
+
+    def reset():
+        state.zero_()
+        state[:16] = torch.eye(4, device=cs.DEVICE).reshape(-1)
+
+    def step_fn(li):
+        Kl = odo.level_intrinsics(cs.MAP_K, li)
+        cam = (Kl[0, 0], Kl[1, 1], Kl[0, 2], Kl[1, 2])
+        if one_launch:
+            return lambda: odo.icp_step(cur[li][0], prev[li][1], cam, state,
+                                        0.5)
+        return lambda: odo.icp_step(cur[li][0], *prev[li], cam, state, 0.5,
+                                    scratch=scratch)
+
+    reset()
+    step_fn(0)()
+    out["icp_pairs_digest"] = digest(state[61:62])
+    for li in range(3):
+        reset()
+        out[f"icp_step{li}_ms"] = cs.gpu_ms(step_fn(li))
+        reset()
+        out[f"icp_step{li}_b2b_ms"] = cs.back_to_back_ms(step_fn(li))
+    T0 = torch.eye(4, device=cs.DEVICE)
+    track = lambda: odo._track(prev, cur, cs.MAP_K, T0)
+    out["icp_track_digest"] = digest(track())
+    out["icp_track_ms"] = cs.gpu_ms(track)
+    out["icp_track_b2b_ms"] = cs.back_to_back_ms(track, iters=20)
+    reset()
+    out["icp_step_host_us"] = host_us(step_fn(2))
+    out["icp_track_host_us"] = host_us(track, n=50)
+    d1 = torch.tensor(depths[1], device=cs.DEVICE)
+    out["icp_pack_ms"] = cs.gpu_ms(lambda: odo.pack_maps(d1, cs.MAP_K, 3))
+    rig = DepthOdometry(K=cs.MAP_K, device=cs.DEVICE)
+    rig.track(depths[0])
+    rig = DepthOdometry(K=cs.MAP_K, device=cs.DEVICE)
+    # the trajectory forward, back and forward again: 29 tracked frames
+    ms = [cs.timed(lambda: rig.track(d).copy())[1]
+          for d in depths + depths[::-1] + depths]
+    out["icp_track_frame_ms"] = statistics.median(ms[1:])
+    del prev, cur
+    torch.cuda.empty_cache()
 
 
 def main() -> int:

@@ -176,13 +176,14 @@ def test_icp_level_matches_reference(motions, iters):
     Tj, rj, fj = jodo._icp_level(Vp, Np, okp, Vc, dc > 0, Kj, jnp.eye(4),
                                  iters, 0.5)
 
-    def pack(a, b):
+    def pack(*fields):
         return torch.from_numpy(np.concatenate(
-            [np.asarray(a), np.asarray(b, np.float32)[..., None]], -1))
+            [np.asarray(f, np.float32).reshape(H, W, -1) for f in fields],
+            -1)).clone()
 
     state = torch.zeros(podo.STATE)
     state[:16] = torch.eye(4).reshape(-1)
-    state = podo._icp_level((pack(Vp, dp > 0), pack(Np, okp)),
+    state = podo._icp_level((None, pack(Vp, dp > 0, Np, okp)),
                             (pack(Vc, dc > 0), None),
                             (K[0, 0], K[1, 1], K[0, 2], K[1, 2]), state,
                             iters, 0.5)
@@ -272,8 +273,8 @@ def test_icp_step_state_and_reruns(motions):
     cam = (K[0, 0], K[1, 1], K[0, 2], K[1, 2])
     state = torch.zeros(podo.STATE)
     state[:16] = torch.eye(4).reshape(-1)
-    a = podo.icp_step(cur[0], prev[0], prev[1], cam, state, 0.5)
-    b = podo.icp_step(cur[0], prev[0], prev[1], cam, state, 0.5)
+    a = podo.icp_step(cur[0], prev[1], cam, state, 0.5)
+    b = podo.icp_step(cur[0], prev[1], cam, state, 0.5)
     assert torch.equal(a, b)
     A = a[18:54].reshape(6, 6)
     assert torch.equal(A, A.T) and bool((A.diagonal() > 0).all())
