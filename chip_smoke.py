@@ -229,9 +229,32 @@ final result line) on the first thing that is wrong:
     the depth the matcher measured at its own pixel (its outliers); the
     volume bit-equal to the twin fed the same depth frames, and the
     graph's ms/frame with and without the consumer.
+19. drives capture (``phase_capture``): two emulated GigE Vision cameras
+    in a process of their own (``python3 chip_smoke.py --cameras H W
+    SCENE``, which the smoke starts and ends), device clocks 1000 s
+    apart, 8 triggers of the flagship scene at 2448x2048 at 5 a second,
+    SCPS 8996 at 1 GbE: ``GigEStereoSource.pairs()`` alone and ``cli
+    live --gige --algorithm I3DRSGM`` with each GVSP backend (every pair
+    delivered, payloads exact, each disparity and valid mask bit-equal
+    to ``process``; pairs a second, ``dropped_unpaired``, resends, the
+    host's reassembly CPU a frame, the matcher's ms/frame), then the same
+    frames through two ``FrameRing``s and ``ShmCameraPublisher``s into
+    the graph (bit-equal again);
+20. drives ``cli live --serve --duration 3`` on the synthetic 2448x2048
+    source (``phase_serve``): ``/params`` lists the three servers, a
+    ``/set`` of P1 reaches the next frame (each frame bit-equal to
+    ``process`` under the P1 it ran with, and not under the other);
+21. drives the sharded matcher (``phase_dist``), the flagship config at
+    2448x2048, batch 2: mesh 1x1 bit-equal to the unsharded run, mesh
+    1x4 on the one card with a 64-row halo at the reference test's gate
+    (99 % within 1 px more than 16 rows from the cuts; the agreement by
+    bands of 8 rows too), the 2x1 pipeline step on the distorted rig at
+    the accuracy gate, ms/frame by events for each and
+    ``measure_scaling([1])``.
 
 ``python3 chip_smoke.py --only bp`` (any ``phase_*`` names, comma
-separated: ``--only shell`` runs phase 17, ``--only mapping`` phase 18)
+separated: ``--only shell`` runs phase 17, ``--only mapping`` phase 18,
+``--only capture,serve,dist`` phases 19-21)
 builds the kernels and runs
 those phases alone: no kernels line and no result line.
 
@@ -2727,7 +2750,12 @@ SHELL_MODULES = (
     "i3dr_stereo_tpu_torch.pipeline.pairing",
     "i3dr_stereo_tpu_torch.pipeline.runner",
     "i3dr_stereo_tpu_torch.utils.metrics",
-    "i3dr_stereo_tpu_torch.viz.viewer", "i3dr_stereo_tpu_torch.viz.colormap")
+    "i3dr_stereo_tpu_torch.viz.viewer", "i3dr_stereo_tpu_torch.viz.colormap",
+    "i3dr_stereo_tpu_torch.native.shm", "i3dr_stereo_tpu_torch.native.gvsp",
+    "i3dr_stereo_tpu_torch.bridge.drivers", "i3dr_stereo_tpu_torch.io.gige",
+    "i3dr_stereo_tpu_torch.viz.serve", "i3dr_stereo_tpu_torch.dist.mesh",
+    "i3dr_stereo_tpu_torch.dist.sharded",
+    "i3dr_stereo_tpu_torch.dist.multihost")
 SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
               "cudaEventSynchronize")
 
@@ -3585,7 +3613,659 @@ def phase_mapping(stats, card):
           flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 19: capture (GigE Vision cameras, the shared-memory ring)
+# ---------------------------------------------------------------------------
+
+CAPTURE_PAIRS = 8
+CAPTURE_FPS = 5.0          # the reference rig's rate (stereo_capture.launch)
+CLOCK_OFFSET_NS = 1000 * 10**9   # the right camera's device clock, ahead
+GIGE_PACKET = 8996         # SCPS of an MTU of 9000: ~560 packets a frame
+WIRE_BPS = 1e9 / 8         # a gigabit link's payload rate (gige_bench.py)
+PACE_PACKETS = 16          # packets a camera between pacing sleeps
+
+
+class GraphSpy:
+    """Records the graph ``cli.cmd_live`` launches: the raw frames and the
+    node's P1 as each pair reaches the node, its disparities, and the
+    source's counters when the feed ends (the CLI closes it after)."""
+
+    def __init__(self, on_start=None):
+        import threading
+
+        from i3dr_stereo_tpu_torch.bridge import launch
+
+        self.launch, self.on_start = launch, on_start
+        self.orig = (launch.launch_stereo_camera, launch.run_source)
+        self.started = threading.Event()
+        self.left, self.raw, self.p1, self.pubs = [], [], [], []
+        self.sources, self.lg = [], None
+
+    def __enter__(self):
+        def launch_stereo_camera(*a, **kw):
+            lg = self.lg = self.orig[0](*a, **kw)
+            g, node = lg.graph, lg.node("generate_disparity")
+            # a pair runs when its right frame reaches the node: P1 is read
+            # as its left frame arrives, before any /set can slip between
+            g.subscribe("/stereo/left/image_raw", lambda s, d: (
+                self.left.append(d), self.p1.append(node.pipeline.config.p1)))
+            g.subscribe("/stereo/right/image_raw",
+                        lambda s, d: self.raw.append((self.left[-1], d)))
+            g.subscribe("/stereo/disparity",
+                        lambda s, m: self.pubs.append(m))
+            return lg
+
+        def run_source(lg, *a, **kw):
+            if self.on_start is not None and not self.started.is_set():
+                self.on_start()
+            self.started.set()
+            n = self.orig[1](lg, *a, **kw)
+            self.sources.append(source_counts(lg.nodes["source"]))
+            return n
+
+        self.launch.launch_stereo_camera = launch_stereo_camera
+        self.launch.run_source = run_source
+        return self
+
+    def __exit__(self, *exc):
+        self.launch.launch_stereo_camera, self.launch.run_source = self.orig
+
+
+def source_counts(src) -> dict:
+    """A GigE stereo source's counters (none for another source)."""
+    if not hasattr(src, "dropped_unpaired"):
+        return {}
+    rx = [src.left.receiver.stats, src.right.receiver.stats]
+    return {"dropped_unpaired": src.dropped_unpaired,
+            "resend_requests": sum(s["resend_requests"] for s in rx),
+            "dropped_frames": sum(s["dropped"] for s in rx),
+            "packets": sum(s["packets"] for s in rx)}
+
+
+def emulators():
+    """Two emulated cameras, control enforced as real cameras do."""
+    from i3dr_stereo_tpu_torch.io.gige import GigECameraEmulator
+
+    return [GigECameraEmulator(serial=s, enforce_control=True,
+                               resend_cache_blocks=CAPTURE_PAIRS)
+            for s in ("SL", "SR")]
+
+
+def gvsp_packets(img, block_id, timestamp_ns, payload) -> list:
+    """``GigECameraEmulator.send_frame``'s LEADER, PAYLOAD and TRAILER
+    packets of one uint8 image, by packet id."""
+    import struct
+
+    def pkt(fmt, pid, body=b""):
+        return struct.pack(">HHI", 0, block_id & 0xFFFF,
+                           (fmt << 24) | (pid & 0xFFFFFF)) + body
+
+    h, w = img.shape
+    out = [pkt(1, 0, struct.pack(">HHQIII", 0, 1, timestamp_ns, 8 << 16, w,
+                                 h) + b"\0" * 16)]
+    raw = img.tobytes()
+    for off in range(0, len(raw), payload):
+        out.append(pkt(3, len(out), raw[off:off + payload]))
+    out.append(pkt(2, len(out)))
+    return out
+
+
+def trigger(emus, frames) -> None:
+    """Once both cameras are brought up, fire them together at
+    CAPTURE_FPS, the right device clock CLOCK_OFFSET_NS ahead: each
+    frame's packets leave at a gigabit link's rate from its trigger (a
+    5 MB burst into a socket buffer would measure the buffer, not the
+    receiver), the two cameras' interleaved chunk by chunk as two links
+    stream side by side (two sender threads skewed the pair by tens of
+    ms). Every packet enters its camera's resend cache."""
+    from i3dr_stereo_tpu_torch.io.gige import (REG_ACQUISITION_START, REG_SCP,
+                                               REG_SCPS)
+
+    deadline = time.monotonic() + 120
+    while not all(e.regs[REG_ACQUISITION_START] == 1 and e.regs[REG_SCP]
+                  for e in emus):
+        check(time.monotonic() < deadline, "cameras: never started")
+        time.sleep(0.01)
+    dests = [e.stream_dest() for e in emus]
+    payload = [max(64, (e.regs[REG_SCPS] & 0xFFFF) - 8) for e in emus]
+    t_next = time.perf_counter()
+    for i, pair in enumerate(frames):
+        t0 = time.perf_counter()
+        packets = [gvsp_packets(img, i + 1, int(i * 1e9 / CAPTURE_FPS) + off,
+                                size)
+                   for img, off, size in zip(pair, (0, CLOCK_OFFSET_NS),
+                                             payload)]
+        for e, pk in zip(emus, packets):
+            for pid, data in enumerate(pk):
+                e._cache(i + 1, pid, data)
+        sent = [0, 0]
+        for k in range(max(len(pk) for pk in packets)):
+            for c, (e, pk, dest) in enumerate(zip(emus, packets, dests)):
+                if k < len(pk):
+                    e._send_raw(pk[k], dest, True)
+                    sent[c] += len(pk[k])
+            if k % PACE_PACKETS == PACE_PACKETS - 1:
+                time.sleep(max(0.0, t0 + max(sent) / WIRE_BPS
+                               - time.perf_counter()))
+        t_next += 1.0 / CAPTURE_FPS
+        time.sleep(max(0.0, t_next - time.perf_counter()))
+
+
+def camera_process(h: int, w: int, scene: dict) -> int:
+    """``python3 chip_smoke.py --cameras H W SCENE``: the two emulated
+    cameras in a process of their own, as cameras are devices of their
+    own (their senders must not share the receiving process's
+    interpreter). Prints their addresses, streams ``capture_frames()`` of
+    that size and scene once told ``go`` on stdin and the host has
+    brought them up, prints what it sent, and serves resends until stdin
+    closes."""
+    global H_FULL, W_FULL, SCENE
+    H_FULL, W_FULL, SCENE = h, w, scene
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    frames = capture_frames()
+    emus = emulators()
+    print(json.dumps({"cameras": [list(e.address) for e in emus]}),
+          flush=True)
+    try:
+        if sys.stdin.readline().strip() == "go":
+            trigger(emus, frames)
+            print(json.dumps({"sent": len(frames)}), flush=True)
+        sys.stdin.read()
+    finally:
+        for e in emus:
+            e.close()
+    return 0
+
+
+class Cameras:
+    """``camera_process`` run from here: ``addresses``, ``go()`` to start
+    the stream; on leaving, what it sent is checked and it is ended."""
+
+    def __enter__(self):
+        self.proc = subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--cameras",
+             str(H_FULL), str(W_FULL), json.dumps(SCENE)],
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
+        line = self.proc.stdout.readline()
+        check(bool(line), "cameras: the camera process did not start")
+        self.addresses = [tuple(a) for a in json.loads(line)["cameras"]]
+        return self
+
+    def go(self) -> None:
+        self.proc.stdin.write("go\n")
+        self.proc.stdin.flush()
+
+    def sent(self) -> int:
+        return json.loads(self.proc.stdout.readline())["sent"]
+
+    def __exit__(self, *exc):
+        try:
+            self.proc.stdin.close()
+            self.proc.wait(timeout=30)
+        finally:
+            if self.proc.poll() is None:
+                self.proc.kill()
+                self.proc.wait()
+
+
+def capture_only(frames, backend) -> dict:
+    """Both cameras into ``GigEStereoSource.pairs()`` with no matcher: the
+    pairs and their payloads, pairs a second, and the host's reassembly
+    CPU a frame (this process's CPU; the cameras run in another)."""
+    from i3dr_stereo_tpu_torch.io.gige import GigEStereoSource
+
+    with Cameras() as cams:
+        src = GigEStereoSource(*cams.addresses, width=W_FULL, height=H_FULL,
+                               packet_size=GIGE_PACKET, backend=backend)
+        cpu0 = time.process_time()
+        cams.go()
+        got, stamps = [], []
+        for l, r in src.pairs():
+            got.append((l, r))
+            stamps.append(time.perf_counter())
+        cpu = time.process_time() - cpu0
+        counts = source_counts(src)
+        src.close()
+        check(cams.sent() == len(frames), "capture: the cameras did not "
+              "send every frame")
+    check(len(got) == len(frames), f"capture ({backend}): {len(got)} of "
+          f"{len(frames)} pairs, {counts}")
+    for (l, r), (a, b) in zip(got, frames):
+        check(np.array_equal(l.data, a) and np.array_equal(r.data, b),
+              f"capture ({backend}): a payload differs from the frame sent")
+        check(abs(r.device_stamp - l.device_stamp - CLOCK_OFFSET_NS / 1e9)
+              < 1e-6 and l.stamp == r.stamp,
+              f"capture ({backend}): stamps {l.stamp} {r.stamp} "
+              f"{l.device_stamp} {r.device_stamp}")
+    span = stamps[-1] - stamps[0]
+    return {"pairs_per_s": (len(got) - 1) / span if span > 0 else None,
+            "reassembly_ms": cpu * 1e3 / (2 * len(got)), **counts}
+
+
+def capture_cli(card, params, camera, frames, backend) -> None:
+    """``cli live --gige`` on the two emulated cameras, flagship graph:
+    every pair delivered, each disparity bit-equal to ``process``."""
+    import contextlib
+    import io
+
+    from i3dr_stereo_tpu_torch import _build, cli
+    from i3dr_stereo_tpu_torch.pipeline.stereo_pipeline import StereoPipeline
+
+    with Cameras() as cams, GraphSpy(on_start=cams.go) as spy:
+        addrs = ",".join(f"{h}:{p}" for h, p in cams.addresses)
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["live", "--gige", addrs, "--gige-backend",
+                           backend, "--packet-size", str(GIGE_PACKET),
+                           "--width", str(W_FULL), "--height", str(H_FULL),
+                           "--algorithm", "I3DRSGM", "--device", DEVICE])
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+        check(cams.sent() == len(frames), "cli live --gige: the cameras did "
+              "not send every frame")
+    out = json.loads(buf.getvalue().strip().splitlines()[-1])
+    counts = spy.sources[-1]
+    check(rc == 0 and out == {"frames": len(frames),
+                              "processed": len(frames)},
+          f"cli live --gige ({backend}): {out}, {counts}")
+    for name in FLAGSHIP_KERNELS:
+        if name != "remap":
+            check(launches[name] > 0, f"cli live --gige: {name} did not "
+                  "launch")
+    node = spy.lg.node("generate_disparity")
+    ref = StereoPipeline(node.pipeline.rig, node.pipeline.config,
+                         node.pipeline.cloud, device=DEVICE,
+                         rectify_inputs=False)
+    check(len(spy.pubs) == len(frames), "cli live --gige: publications")
+    for (a, b), (l, r), msg in zip(frames, spy.raw, spy.pubs):
+        check(np.array_equal(l, a) and np.array_equal(r, b),
+              f"cli live --gige ({backend}): a frame differs from the sent")
+        want = ref.process(a, b)
+        check(np.array_equal(msg["disparity"], want.disparity.cpu().numpy())
+              and np.array_equal(msg["valid"], want.valid.cpu().numpy()),
+              f"cli live --gige ({backend}): a disparity differs from "
+              "process")
+    match_ms = gpu_ms(lambda: ref.process(*frames[0]), iters=5, warmup=1)
+    print(f"cli live --gige {backend} [{card}]: {len(frames)} pairs of "
+          f"{W_FULL}x{H_FULL} uint8, right device clock "
+          f"{CLOCK_OFFSET_NS / 1e9:.0f} s ahead, every pair delivered and "
+          f"each disparity and valid mask bit-equal to process; "
+          f"{wall:.2f} s (bring-up, warm-up and 1 s of end-of-stream quiet "
+          f"included), {counts}; the matcher {match_ms:.3f} ms/frame "
+          f"(events, process); launches {launches}", flush=True)
+
+
+def capture_ring(card, params, camera, frames) -> None:
+    """The same frames through two ``FrameRing``s and
+    ``ShmCameraPublisher``s into the flagship graph: bit-equal again."""
+    import os
+
+    from i3dr_stereo_tpu_torch import _build
+    from i3dr_stereo_tpu_torch.bridge.drivers import ShmCameraPublisher
+    from i3dr_stereo_tpu_torch.bridge.graph import Graph
+    from i3dr_stereo_tpu_torch.bridge.launch import launch_stereo_matcher
+    from i3dr_stereo_tpu_torch.native.shm import FrameRing
+    from i3dr_stereo_tpu_torch.pipeline.stereo_pipeline import StereoPipeline
+
+    rig = camera.StereoRig.synthetic(W_FULL, H_FULL, fx=580.0, baseline_m=0.3)
+    g = Graph()
+    lg = launch_stereo_matcher(rig, stereo_algorithm=params.Algorithm.I3DRSGM,
+                               rectify_inputs=False, graph=g, device=DEVICE)
+    node = lg.node("generate_disparity")
+    pubs = []
+    g.subscribe("/stereo/disparity", lambda s, m: pubs.append(m))
+    ref = StereoPipeline(rig, node.pipeline.config, node.pipeline.cloud,
+                         device=DEVICE, rectify_inputs=False)
+    names = [f"i3dr_smoke_{os.getpid()}_{s}" for s in ("l", "r")]
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    with FrameRing(names[0], slots=2, frame_shape=(H_FULL, W_FULL)) as rl, \
+         FrameRing(names[1], slots=2, frame_shape=(H_FULL, W_FULL)) as rr:
+        pl = ShmCameraPublisher(g, rl, "/stereo/left", name="left_shm")
+        pr = ShmCameraPublisher(g, rr, "/stereo/right", name="right_shm")
+        for i, (a, b) in enumerate(frames):
+            check(rl.push(i / CAPTURE_FPS, a, seq=i)
+                  and rr.push(i / CAPTURE_FPS, b, seq=i), "ring: full")
+            check(pl.pump() == 1 and pr.pump() == 1, "ring: pump")
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    check(len(pubs) == len(frames), f"ring: {len(pubs)} disparities")
+    for (a, b), msg in zip(frames, pubs):
+        want = ref.process(a, b)
+        check(np.array_equal(msg["disparity"], want.disparity.cpu().numpy())
+              and np.array_equal(msg["valid"], want.valid.cpu().numpy()),
+              "ring: a disparity differs from process")
+    for name in FLAGSHIP_KERNELS:
+        if name != "remap":
+            check(launches[name] > 0, f"ring: {name} did not launch")
+    print(f"ring [{card}]: {len(frames)} pairs through two FrameRings and "
+          f"ShmCameraPublishers into the flagship graph in {wall:.2f} s, "
+          f"each disparity bit-equal to process", flush=True)
+
+
+def capture_frames():
+    from i3dr_stereo_tpu_torch.io.synthetic import layered_scene
+
+    sc = layered_scene(H_FULL, W_FULL, **SCENE)
+    L, R = raw_u8(sc.left), raw_u8(sc.right)
+    return [(np.roll(L, 97 * i, axis=1), np.roll(R, 97 * i, axis=1))
+            for i in range(CAPTURE_PAIRS)]
+
+
+def phase_capture(stats, card):
+    """Two emulated GigE Vision cameras at 2448x2048 (both backends), the
+    CLI's live graph on them, and the shared-memory ring."""
+    from i3dr_stereo_tpu_torch.config import params
+    from i3dr_stereo_tpu_torch.core import camera
+
+    t0 = time.perf_counter()
+    frames = capture_frames()
+    rmem = Path("/proc/sys/net/core/rmem_max")
+    print(f"capture: the host's largest socket receive buffer (rmem_max) "
+          f"{rmem.read_text().strip() if rmem.exists() else 'unknown'} "
+          f"bytes", flush=True)
+    for backend in ("python", "native"):
+        c = capture_only(frames, backend)
+        print(f"capture {backend} [{card}]: {CAPTURE_PAIRS} pairs of "
+              f"{W_FULL}x{H_FULL} at {CAPTURE_FPS:g} per s, paced at 1 GbE, "
+              f"SCPS {GIGE_PACKET}, right device clock {CLOCK_OFFSET_NS / 1e9:.0f} s "
+              f"ahead: all paired, payloads exact; {c['pairs_per_s']:.3f} "
+              f"pairs/s, reassembly {c['reassembly_ms']:.3f} ms of host CPU "
+              f"a frame (this process's; the cameras run in another), "
+              f"dropped_unpaired "
+              f"{c['dropped_unpaired']}, resend requests "
+              f"{c['resend_requests']}, frames dropped "
+              f"{c['dropped_frames']}, packets {c['packets']}", flush=True)
+        capture_cli(card, params, camera, frames, backend)
+    capture_ring(card, params, camera, frames)
+    torch.cuda.empty_cache()
+    print(f"capture phase done in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 20: the operator server (cli live --serve)
+# ---------------------------------------------------------------------------
+
+SERVE_P1 = 0.4             # the I3DRSGM defaults' P1 is 0.1
+
+
+class Tee:
+    """A stdout that keeps what is written and passes it on."""
+
+    def __init__(self, out):
+        self.out, self.text = out, ""
+
+    def write(self, s):
+        self.text += s
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def http_get(url):
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=30) as r:
+        return json.loads(r.read())
+
+
+def phase_serve(stats, card):
+    """``cli live --serve --duration 3`` on the synthetic 2448x2048
+    source: ``/params`` lists the three servers, a ``/set`` of P1 reaches
+    the next frame (bit-equal to ``process`` under that P1, and not to
+    ``process`` under the old one). No JPEG route: the card's machine has
+    no OpenCV."""
+    import contextlib
+    import threading
+
+    from i3dr_stereo_tpu_torch import _build, cli
+    from i3dr_stereo_tpu_torch.pipeline.stereo_pipeline import StereoPipeline
+
+    t0 = time.perf_counter()
+    tee = Tee(sys.stdout)
+    rc = []
+
+    def wait(cond, what, seconds=120):
+        deadline = time.monotonic() + seconds
+        while not cond():
+            check(time.monotonic() < deadline, f"serve: {what}")
+            time.sleep(0.01)
+
+    with GraphSpy() as spy, contextlib.redirect_stdout(tee):
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        th = threading.Thread(target=lambda: rc.append(cli.main(
+            ["live", "--serve", "--duration", "3", "--frames", "4",
+             "--width", str(W_FULL), "--height", str(H_FULL),
+             "--algorithm", "I3DRSGM", "--device", DEVICE])), daemon=True)
+        th.start()
+        wait(lambda: '"serving"' in tee.text, "no serving line")
+        url = next(json.loads(line)["serving"] for line in
+                   tee.text.splitlines() if '"serving"' in line)
+        served = http_get(url + "params")
+        wait(lambda: spy.pubs, "no frame")
+        old = spy.lg.node("generate_disparity").pipeline.config
+        got = http_get(url + f"set?server=disparity&p1={SERVE_P1}")
+        k = len(spy.p1)               # the next pair to reach the node
+        th.join(timeout=120)
+        check(not th.is_alive(), "serve: the CLI did not end")
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+    out = json.loads(tee.text.strip().splitlines()[-1])
+    check(rc == [0] and out["frames"] == out["processed"] == len(spy.pubs)
+          and out["served"] == url, f"serve: {rc} {out}")
+    check({"disparity", "cloud", "view"} <= set(served)
+          and served["disparity"]["values"]["p1"] == old.p1,
+          f"serve: /params lists {sorted(served)}")
+    check(got["ok"] and got["values"]["p1"] == SERVE_P1, f"serve: /set {got}")
+    check(len(spy.pubs) > k, f"serve: no frame after the /set ({k} before)")
+    for name in FLAGSHIP_KERNELS:
+        if name != "remap":
+            check(launches[name] > 0, f"serve: {name} did not launch")
+    node = spy.lg.node("generate_disparity")
+    new = node.pipeline.config
+    check(new.p1 == SERVE_P1 and spy.p1[:k] == [old.p1] * k
+          and spy.p1[k:] == [SERVE_P1] * (len(spy.pubs) - k),
+          f"serve: P1 by frame {spy.p1}, the /set before frame {k}")
+    refs = [StereoPipeline(node.pipeline.rig, cfg, node.pipeline.cloud,
+                           device=DEVICE, rectify_inputs=False)
+            for cfg in (old, new)]
+    for i, ((a, b), msg) in enumerate(zip(spy.raw, spy.pubs)):
+        want, other = (p.process(a, b) for p in
+                       (refs if i < k else refs[::-1]))
+        d = want.disparity.cpu().numpy()
+        check(np.array_equal(msg["disparity"], d)
+              and np.array_equal(msg["valid"], want.valid.cpu().numpy()),
+              f"serve: frame {i} differs from process under its P1")
+        check(not np.array_equal(d, other.disparity.cpu().numpy()),
+              f"serve: frame {i} is the same under both P1s")
+    print(f"serve [{card}]: cli live --serve --duration 3 at "
+          f"{W_FULL}x{H_FULL}: /params lists {sorted(served)}; /set "
+          f"p1={SERVE_P1} (from {old.p1}) answered ok before pair {k}; "
+          f"{len(spy.pubs)} frames, each bit-equal to process under the P1 "
+          f"it ran with and not under the other; launches {launches}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 21: the sharded matcher and pipeline step (dist/)
+# ---------------------------------------------------------------------------
+
+DIST_HALO = 64             # the reference test's 32 rows, for 4 levels
+DIST_MARGIN = 16           # rows from a cut left out of the gate (its 8)
+MIN_SHARD_AGREE = 0.99     # the reference test's gate (tests/test_dist.py)
+
+
+def rect_map_at(cam, u, v):
+    """Where ``cam``'s rectification samples the raw image for rectified
+    pixels (u, v): ``ops/rectify.py:inverse_rectify_map_xy`` at any
+    coordinates."""
+    x = (u - cam.cx) / cam.fx
+    y = (v - cam.cy) / cam.fy
+    Ri = np.linalg.inv(cam.R)
+    X, Y, Z = (Ri[i, 0] * x + Ri[i, 1] * y + Ri[i, 2] for i in range(3))
+    xp, yp = X / Z, Y / Z
+    k1, k2, p1, p2, k3 = np.concatenate([cam.D[:5], np.zeros(5)])[:5]
+    r2 = xp * xp + yp * yp
+    radial = 1.0 + r2 * (k1 + r2 * (k2 + r2 * k3))
+    xd = xp * radial + 2.0 * p1 * xp * yp + p2 * (r2 + 2.0 * xp * xp)
+    yd = yp * radial + p1 * (r2 + 2.0 * yp * yp) + 2.0 * p2 * xp * yp
+    return cam.K[0, 0] * xd + cam.K[0, 2], cam.K[1, 1] * yd + cam.K[1, 2]
+
+
+def raw_views(cam, images):
+    """The raw images ``cam`` sees of rectified ``images``: each raw pixel
+    samples the image where the rectification maps it (the map inverted
+    by fixed-point steps, float64), bicubic."""
+    from scipy.ndimage import map_coordinates
+
+    y, x = np.mgrid[0:H_FULL, 0:W_FULL].astype(np.float64)
+    u, v = x.copy(), y.copy()
+    for _ in range(10):
+        mx, my = rect_map_at(cam, u, v)
+        u += x - mx
+        v += y - my
+    mx, my = rect_map_at(cam, u, v)
+    check(float(np.abs(mx - x).max() + np.abs(my - y).max()) < 1e-3,
+          "dist: the rectification map did not invert")
+    return np.stack([raw_u8(map_coordinates(img.astype(np.float64), [v, u],
+                                            order=3, mode="nearest"))
+                     for img in images])
+
+
+def dist_agreement(res_s, res_1):
+    """Share of pixels valid in both runs, more than DIST_MARGIN rows from
+    every cut, within 1 px of the unsharded run; and by bands of 8 rows
+    from the nearest cut."""
+    cuts = np.array([H_FULL // 4 * k for k in (1, 2, 3)])
+    rows = np.abs(np.arange(H_FULL)[:, None] - cuts[None]).min(1)
+    v = (res_s.valid & res_1.valid).cpu().numpy()
+    ok = ((res_s.disparity - res_1.disparity).abs() < 1.0).cpu().numpy()
+    sel = v & (rows > DIST_MARGIN)[None, :, None]
+    bands = []
+    for b in range(0, 64, 8):
+        m = v & ((rows >= b) & (rows < b + 8))[None, :, None]
+        bands.append((b, float(ok[m].mean())))
+    far = v & (rows >= 64)[None, :, None]
+    return float(ok[sel].mean()), float(sel.mean()), bands, \
+        float(ok[far].mean())
+
+
+def phase_dist(stats, card):
+    """The sharded matcher on the flagship config at 2448x2048, batch 2:
+    mesh 1x1 bit-equal to the unsharded run, mesh 1x4 on the one card
+    (halo 64) at the reference test's gate away from the cuts, and the
+    2x1 pipeline step on the distorted rig at the accuracy gate."""
+    from i3dr_stereo_tpu_torch import _build
+    from i3dr_stereo_tpu_torch.config import params
+    from i3dr_stereo_tpu_torch.core import camera
+    from i3dr_stereo_tpu_torch.dist.mesh import make_mesh
+    from i3dr_stereo_tpu_torch.dist.multihost import measure_scaling
+    from i3dr_stereo_tpu_torch.dist.sharded import (
+        make_sharded_matcher, make_sharded_pipeline_step)
+    from i3dr_stereo_tpu_torch.io.synthetic import layered_scene
+    from i3dr_stereo_tpu_torch.matchers.registry import compute_disparity
+
+    t0 = time.perf_counter()
+    cfg = flagship_cfg(params)
+    scenes = [layered_scene(H_FULL, W_FULL, **{**SCENE, "seed": s})
+              for s in (1, 2)]
+    # the matcher's input: rectified float32 frames, as process gives it
+    L = torch.tensor(np.stack([raw_u8(s.left) for s in scenes]),
+                     device=DEVICE).float()
+    R = torch.tensor(np.stack([raw_u8(s.right) for s in scenes]),
+                     device=DEVICE).float()
+    card_dev = L.device
+
+    def counted(fn, label, kernels):
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+        for name in kernels:
+            check(launches[name] > 0, f"dist {label}: {name} did not launch")
+        return out, launches
+
+    matcher_kernels = [k for k in FLAGSHIP_KERNELS if k != "remap"]
+    res_1, _ = counted(lambda: compute_disparity(L, R, cfg), "unsharded",
+                       matcher_kernels)
+    m11 = make_sharded_matcher(cfg, make_mesh(1, 1, [card_dev]), halo=0)
+    res_11, _ = counted(lambda: m11(L, R), "1x1", matcher_kernels)
+    check(torch.equal(res_11.disparity, res_1.disparity)
+          and torch.equal(res_11.valid, res_1.valid),
+          "dist 1x1: not bit-equal to the unsharded run")
+    m14 = make_sharded_matcher(cfg, make_mesh(1, 4, [card_dev] * 4),
+                               halo=DIST_HALO)
+    res_14, launches = counted(lambda: m14(L, R), "1x4", matcher_kernels)
+    agree, share, bands, far = dist_agreement(res_14, res_1)
+    print(f"dist 1x4 [{card}]: 4 row blocks of {H_FULL // 4} rows + "
+          f"{DIST_HALO}-row halos on one card, flagship config, batch 2: "
+          f"{agree:.6f} of the pixels valid in both runs and more than "
+          f"{DIST_MARGIN} rows from every cut ({share:.4f} of the batch) "
+          f"within 1 px of the unsharded run; by rows from the nearest cut "
+          f"{', '.join(f'{b}-{b + 7}: {a:.6f}' for b, a in bands)}; 64 or "
+          f"more rows {far:.6f}; launches {launches}", flush=True)
+    check(agree >= MIN_SHARD_AGREE, f"dist 1x4: agreement {agree} < "
+          f"{MIN_SHARD_AGREE} away from the cuts")
+
+    rig = distorted_rig(camera)
+    t1 = time.perf_counter()
+    RL = raw_views(rig.left, [s.left for s in scenes])
+    RR = raw_views(rig.right, [s.right for s in scenes])
+    prep = time.perf_counter() - t1
+    cloud = params.PointCloudConfig(depth_max=100.0, depth_min=0.5)
+    step = make_sharded_pipeline_step(rig, cfg, cloud,
+                                      make_mesh(2, 1, [card_dev] * 2))
+    out, launches = counted(lambda: step(RL, RR), "2x1 step",
+                            FLAGSHIP_KERNELS)
+    check(set(out) == {"rect_left", "rect_right", "disparity", "valid",
+                       "depth", "depth_valid"}
+          and all(tuple(x.shape) == (2, H_FULL, W_FULL)
+                  for x in out.values()), "dist step: outputs")
+    check(bool(torch.isfinite(out["depth"]).all()), "dist step: depth")
+    acc = []
+    for i, sc in enumerate(scenes):
+        d = out["disparity"][i].cpu().numpy()
+        v = out["valid"][i].cpu().numpy()
+        both = v & sc.valid
+        acc.append((float(v.mean()),
+                    float(np.median(np.abs(d - sc.disparity)[both]))))
+    print(f"dist 2x1 step [{card}]: raw views of two layered scenes through "
+          f"the distorted rig (made in {prep:.1f} s on the host), linear "
+          f"remap on each data shard, the flagship matcher, depth: "
+          f"(density, median |d - GT| px) {acc}; launches {launches}",
+          flush=True)
+    for density, med in acc:
+        check(density > 0.5 and med < MAX_MEDIAN_ERR,
+              f"dist step: density {density}, median error {med}")
+
+    ms = {"unsharded": gpu_ms(lambda: compute_disparity(L, R, cfg), 3, 1),
+          "1x1": gpu_ms(lambda: m11(L, R), 3, 1),
+          "1x4": gpu_ms(lambda: m14(L, R), 3, 1),
+          "2x1 step": gpu_ms(lambda: step(RL, RR), 3, 1)}
+    scaling = measure_scaling(
+        lambda mesh: make_sharded_matcher(cfg, mesh, halo=0),
+        lambda n: (L[:n], R[:n]), [1], iters=3, devices=[card_dev])
+    print(f"dist timing [{card}]: ms/frame by events at batch 2 "
+          f"{json.dumps({k: round(v / 2, 3) for k, v in ms.items()})}; "
+          f"measure_scaling([1]) {json.dumps(scaling)}; peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    torch.cuda.empty_cache()
+    print(f"dist phase done in {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--cameras"]:
+        return camera_process(int(sys.argv[2]), int(sys.argv[3]),
+                              json.loads(sys.argv[4]))
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device (torch.cuda.is_available() is false)",
               file=sys.stderr)
@@ -3638,6 +4318,9 @@ def main() -> int:
     phase_bp(stats, card)
     phase_shell(stats, card)
     phase_mapping(stats, card)
+    phase_capture(stats, card)
+    phase_serve(stats, card)
+    phase_dist(stats, card)
     print(f"whole run {time.perf_counter() - t_start:.1f} s", flush=True)
 
     for k, st in stats.items():

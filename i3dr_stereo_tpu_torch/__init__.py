@@ -17,8 +17,11 @@ handling, Gauss and WLS hole filling) and its facade,
 ``matchers.i3drsgm.I3DRSGM``, with the ``.param`` profiles; belief
 propagation; the shell around the pipeline: the node graph
 (``bridge``), the stream runner, the savers and sources, the headless
-viewer and the CLI (``python -m i3dr_stereo_tpu_torch.cli``); and the
-mapping consumers (``mapping``: TSDF fusion and depth odometry).
+viewer and the CLI (``python -m i3dr_stereo_tpu_torch.cli``); the
+mapping consumers (``mapping``: TSDF fusion and depth odometry); capture
+(``native``: the shared-memory frame ring and the C++ GVSP engine,
+``bridge.drivers``, ``io.gige``: the GigE Vision driver), the operator's
+HTTP server (``viz.serve``) and the sharded matcher (``dist``).
 ROADMAP.md lists what comes next.
 """
 

@@ -21,6 +21,7 @@ a missing card raises) and pass it to every node that computes.
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Iterator, Optional, Tuple
 
 from i3dr_stereo_tpu_torch.bridge.graph import Graph
@@ -116,8 +117,10 @@ def launch_stereo_camera(rig: StereoRig, *,
 
 
 def run_source(lg: LaunchedGraph, namespace: str = "/stereo",
-               n_frames: Optional[int] = None) -> int:
-    """Feed the launched graph from its source (the drivers' job)."""
+               n_frames: Optional[int] = None,
+               stop: Optional[threading.Event] = None) -> int:
+    """Feed the launched graph from its source (the drivers' job); with
+    ``stop``, end after the pair in flight once it is set."""
     src = lg.nodes["source"]
     n = 0
     for l, r in src.pairs():
@@ -125,6 +128,8 @@ def run_source(lg: LaunchedGraph, namespace: str = "/stereo",
         lg.graph.publish(f"{namespace}/right/image_raw", r.stamp, r.data)
         n += 1
         if n_frames is not None and n >= n_frames:
+            break
+        if stop is not None and stop.is_set():
             break
     return n
 

@@ -5,13 +5,18 @@
         --disparity-range 128 -o out/
     python -m i3dr_stereo_tpu_torch.cli replay captures/ --algorithm I3DRSGM
     python -m i3dr_stereo_tpu_torch.cli live --frames 10 --save-view view.png
+    python -m i3dr_stereo_tpu_torch.cli live --gige 10.0.0.2,10.0.0.3 \\
+        --width 2448 --height 2048 --algorithm I3DRSGM
+    python -m i3dr_stereo_tpu_torch.cli live --serve --duration 60
     python -m i3dr_stereo_tpu_torch.cli info
 
 Mirrors the reference's launch arguments (stereo_algorithm,
 min_disparity, disparity_range, calibration paths, depth_max, ...;
 launch/stereo_matcher.launch:20-143). ``--device`` (default ``cuda``)
 picks where the matcher runs: the card unless the caller asks for the
-CPU, and a missing card raises. ``live`` runs the synthetic source.
+CPU, and a missing card raises. ``live`` runs the synthetic source, two
+GigE Vision cameras (``--gige``) and the operator's HTTP loop
+(``--serve``).
 """
 
 from __future__ import annotations
@@ -150,23 +155,93 @@ def cmd_live(args) -> int:
     from i3dr_stereo_tpu_torch.io.sources import SyntheticStereoSource
     from i3dr_stereo_tpu_torch.viz.viewer import StereoViewer
 
-    src = SyntheticStereoSource(width=args.width, height=args.height,
-                                n_frames=args.frames)
-    if args.calib:
-        rig = StereoRig.from_yaml(*args.calib)
+    if args.gige:
+        # real hardware: two GigE Vision cameras, full protocol bring-up
+        # (the reference's stereo_capture.launch cameras); address form
+        # HOST:PORT,HOST:PORT. The left camera's calibration comes from
+        # --calib YAMLs when given, else a synthetic rig of the same size.
+        from i3dr_stereo_tpu_torch.io.gige import GigEStereoSource
+
+        def addr(s):
+            host, _, port = s.partition(":")
+            return (host, int(port or 3956))
+
+        left_a, _, right_a = args.gige.partition(",")
+        src = GigEStereoSource(addr(left_a), addr(right_a),
+                               width=args.width, height=args.height,
+                               packet_size=args.packet_size,
+                               backend=args.gige_backend)
     else:
-        rig = StereoRig.synthetic(args.width, args.height, fx=args.fx,
-                                  baseline_m=args.baseline)
-    lg = launch_stereo_camera(rig, stereo_algorithm=Algorithm[args.algorithm],
-                              source=src, rectify_inputs=False,
-                              device=args.device)
-    viewer = StereoViewer(lg.graph, "/stereo")
-    out = {"frames": run_source(lg),
-           "processed": lg.node("generate_disparity").frames_processed}
-    if args.save_view:
-        out["view"] = viewer.save(args.save_view)
+        src = SyntheticStereoSource(width=args.width, height=args.height,
+                                    n_frames=args.frames)
+    try:
+        if args.calib:
+            rig = StereoRig.from_yaml(*args.calib)
+        else:
+            rig = StereoRig.synthetic(args.width, args.height, fx=args.fx,
+                                      baseline_m=args.baseline)
+        lg = launch_stereo_camera(rig,
+                                  stereo_algorithm=Algorithm[args.algorithm],
+                                  source=src, rectify_inputs=False,
+                                  device=args.device)
+        viewer = StereoViewer(lg.graph, "/stereo")
+        out = {}
+        if args.serve:
+            out["served"], frames = _serve(args, lg, viewer)
+        else:
+            frames = run_source(lg)
+        out.update({"frames": frames,
+                    "processed": lg.node("generate_disparity")
+                    .frames_processed})
+        if args.save_view:
+            out["view"] = viewer.save(args.save_view)
+    finally:
+        if args.gige:
+            src.close()
     print(json.dumps(out))
     return 0
+
+
+def _serve(args, lg, viewer) -> tuple:
+    """The operator loop (stereo_gui + rqt_reconfigure analog): serve the
+    node's reconfigure servers and the live montage over HTTP while a
+    thread feeds the graph; every frame runs the config current at its
+    start. Returns the server's URL and the frames fed."""
+    import threading
+    import time
+
+    from i3dr_stereo_tpu_torch.bridge.launch import run_source
+    from i3dr_stereo_tpu_torch.viz.serve import OperatorServer, make_view_server
+
+    node = lg.node("generate_disparity")
+    srv = OperatorServer(viewer.render,
+                         {"disparity": node.disparity_cfg,
+                          "cloud": node.cloud_cfg,
+                          "view": make_view_server(viewer)},
+                         port=args.port).start()
+    print(json.dumps({"serving": srv.url}), flush=True)
+    stop = threading.Event()
+    fed = [0]
+
+    def feed():
+        while not stop.is_set():
+            fed[0] += run_source(lg, stop=stop)  # pairs() restarts a sweep
+            if args.duration <= 0:
+                break
+
+    t = threading.Thread(target=feed, daemon=True)
+    t.start()
+    try:
+        if args.duration > 0:
+            time.sleep(args.duration)
+        else:
+            t.join()
+    except KeyboardInterrupt:
+        pass
+    stop.set()
+    t.join()                    # the pair in flight ends the feed
+    srv.close()
+    return srv.url, fed[0]
 
 
 def cmd_calibrate(args) -> int:
@@ -228,11 +303,32 @@ def main(argv=None) -> int:
     _add_matcher_args(p)
     p.set_defaults(fn=cmd_replay)
 
-    p = sub.add_parser("live", help="run the synthetic live graph")
+    p = sub.add_parser("live", help="run the live graph (synthetic source, "
+                       "or two GigE Vision cameras with --gige)")
     p.add_argument("--frames", type=int, default=5)
     p.add_argument("--width", type=int, default=320)
     p.add_argument("--height", type=int, default=240)
     p.add_argument("--save-view", default=None)
+    p.add_argument("--serve", action="store_true",
+                   help="serve the operator loop over HTTP: MJPEG live "
+                        "view + reconfigure panel (stereo_gui + "
+                        "rqt_reconfigure analog)")
+    p.add_argument("--port", type=int, default=0,
+                   help="HTTP port for --serve (0 = ephemeral)")
+    p.add_argument("--duration", type=float, default=0.0,
+                   help="with --serve: loop the source and serve for this "
+                        "many seconds (0 = one pass over --frames)")
+    p.add_argument("--gige", default=None, metavar="L_HOST:PORT,R_HOST:PORT",
+                   help="capture from two real GigE Vision cameras "
+                        "instead of the synthetic source (SDK-free "
+                        "GVCP/GVSP driver; port defaults to 3956)")
+    p.add_argument("--gige-backend", default="auto",
+                   choices=["auto", "python", "native"],
+                   help="GVSP reassembly backend (native = C++ engine)")
+    p.add_argument("--packet-size", type=int, default=2996,
+                   help="with --gige: the GVSP packet size to ask the "
+                        "cameras for (SCPS; 2996 suits an MTU of 3000, "
+                        "8996 one of 9000)")
     p.add_argument("--calib", nargs=2, default=None,
                    metavar=("LEFT_YAML", "RIGHT_YAML"),
                    help="ROS calibration YAMLs for the rig (default: "
