@@ -250,11 +250,18 @@ final result line) on the first thing that is wrong:
     (99 % within 1 px more than 16 rows from the cuts; the agreement by
     bands of 8 rows too), the 2x1 pipeline step on the distorted rig at
     the accuracy gate, ms/frame by events for each and
-    ``measure_scaling([1])``.
+    ``measure_scaling([1])``;
+22. runs ``cli bench`` (``phase_bench``): ``bench.sgm_direct`` with its
+    kernels against the plain twins at 512x640, D = 256 (valid masks
+    identical, |dd| <= 1e-4), then ``python -m i3dr_stereo_tpu_torch.cli
+    bench --config all`` in a process of its own at full sizes: exit
+    code 0, a line for each of the eight configurations and each stage,
+    every value above 0, ``vs_baseline`` null, the card's name and power
+    limit in each line, and each configuration's kernels launched.
 
 ``python3 chip_smoke.py --only bp`` (any ``phase_*`` names, comma
 separated: ``--only shell`` runs phase 17, ``--only mapping`` phase 18,
-``--only capture,serve,dist`` phases 19-21)
+``--only capture,serve,dist`` phases 19-21, ``--only bench`` phase 22)
 builds the kernels and runs
 those phases alone: no kernels line and no result line.
 
@@ -2117,36 +2124,17 @@ def phase_lean_sgbm(stats, card):
 
 
 def phase_direct(card):
-    """``bench.py:sgm_direct_2448``'s chain, once."""
+    """``bench.py:sgm_direct_2448``'s chain (``bench.sgm_direct``), once."""
+    from i3dr_stereo_tpu_torch.bench import sgm_direct
     from i3dr_stereo_tpu_torch.io.synthetic import layered_scene
-    from i3dr_stereo_tpu_torch.ops import sgm
-    from i3dr_stereo_tpu_torch.ops.census import census_transform
-    from i3dr_stereo_tpu_torch.ops.fused_cost_sgm import fused_census_sgm
-    from i3dr_stereo_tpu_torch.ops.lr_check import lr_consistency
-    from i3dr_stereo_tpu_torch.ops.speckle import speckle_filter
-    from i3dr_stereo_tpu_torch.ops.wta import wta_disparity
 
     sc = layered_scene(H_FULL, W_FULL, **SCENE)
     l = torch.tensor(sc.left, device=DEVICE)[None]
     r = torch.tensor(sc.right, device=DEVICE)[None]
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-
-    def chain():
-        cl, cr = census_transform(l, 9, 9), census_transform(r, 9, 9)
-        S, C = fused_census_sgm(cl, cr, 256, base=0, p1=10.0, p2=120.0,
-                                directions=sgm.DIRECTIONS_4,
-                                out_dtype=torch.int16)
-        disp, ok = wta_disparity(S, 0, uniqueness_ratio=10.0, subpixel=True)
-        ok = ok & (C.amin(-1) < 255)
-        del C
-        disp, ok = lr_consistency(disp, ok, S.to(torch.float32), 0, 1.5)
-        del S
-        ok = speckle_filter(disp, ok, max_size=100, max_diff=0.5,
-                            downsample=2)
-        return torch.where(ok, disp, -10000.0), ok
-
-    (out, ok), ms = timed(chain)
+    out, ms = timed(lambda: sgm_direct(l, r, 256))
+    ok = out != -10000.0
     check(tuple(out.shape) == (1, H_FULL, W_FULL)
           and bool(torch.isfinite(out).all()), "direct chain: not finite")
     v = ok[0].cpu().numpy()
@@ -4262,6 +4250,109 @@ def phase_dist(stats, card):
     print(f"dist phase done in {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 22: cli bench (i3dr_stereo_tpu_torch/bench.py), every configuration
+# ---------------------------------------------------------------------------
+
+# the kernels each configuration's counted call must launch (the flagship
+# matcher alone takes rectified images: no remap)
+MATCHER_KERNELS = tuple(k for k in FLAGSHIP_KERNELS if k != "remap")
+BENCH_KERNELS = {
+    "flagship": MATCHER_KERNELS,
+    "flagship_flat": MATCHER_KERNELS,
+    "sgbm_1280": ("sgm_volume",),
+    "bm_640": (),                     # plain torch in both packages
+    "pipeline_batch": SGBM_KERNELS,   # the ideal rig is rectified too
+    "sgm_direct_2448": ("census_transform", "fused_census_fwd", "sgm_volume",
+                        "speckle_ccl"),
+    "e2e_2448": FLAGSHIP_KERNELS,
+    "stages": FLAGSHIP_KERNELS,
+}
+BENCH_DIRECT_SHAPE = (512, 640)   # sgm_direct's kernels against its twins
+BENCH_TIMEOUT_S = 600
+
+
+def phase_bench(stats, card):
+    """``bench.sgm_direct`` (the ``sgm_direct_2448`` configuration's
+    function) with its kernels against the same function on the plain
+    twins at 512x640, D = 256: valid masks identical, |dd| <= 1e-4 where
+    valid. Then ``python -m i3dr_stereo_tpu_torch.cli bench --config
+    all`` in a process of its own at the configurations' full sizes: exit
+    code 0, one line a configuration and one a stage, every value above
+    0, ``vs_baseline`` null, the card's name and power limit in every
+    line, and each configuration's counted call launching its kernels
+    (``BENCH_KERNELS``)."""
+    import gc
+
+    from i3dr_stereo_tpu_torch import _build, bench
+
+    H, W = BENCH_DIRECT_SHAPE
+    l, r = bench._synthetic_pair(H, W)
+    L = torch.tensor(l, device=DEVICE)[None]
+    R = torch.tensor(r, device=DEVICE)[None]
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    got = bench.sgm_direct(L, R, 256)
+    torch.cuda.synchronize()
+    launches = {k: n for k, n in _build.LAUNCHES.items() if n}
+    for k in BENCH_KERNELS["sgm_direct_2448"]:
+        check(launches.get(k, 0) > 0, f"bench sgm_direct: {k} did not "
+              f"launch ({launches})")
+    want = bench.sgm_direct(L, R, 256, plain=True)
+    vk, vp = got != -10000.0, want != -10000.0
+    check(torch.equal(vk, vp), f"bench sgm_direct: valid masks differ at "
+          f"{int((vk != vp).sum())} pixels")
+    dd = (got - want)[vk].abs().max().item() if bool(vk.any()) else 0.0
+    print(f"bench sgm_direct [{card}] at {W}x{H}, D = 256, kernels vs "
+          f"twins: valid masks identical (density {vk.float().mean():.4f}), "
+          f"max |dd| {dd}; launches {launches}", flush=True)
+    check(dd <= TOL_DISP, f"bench sgm_direct: |dd| {dd} > {TOL_DISP}")
+    del L, R, got, want, vk, vp
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    root = Path(__file__).resolve().parent
+    cmd = [sys.executable, "-m", "i3dr_stereo_tpu_torch.cli", "bench",
+           "--config", "all"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+                          timeout=BENCH_TIMEOUT_S)
+    took = time.perf_counter() - t0
+    for line in proc.stdout.splitlines():
+        print(f"bench line: {line}", flush=True)
+    if proc.returncode != 0:
+        print(proc.stderr[-4000:], flush=True)
+    check(proc.returncode == 0, f"cli bench --config all: exit code "
+          f"{proc.returncode}")
+    lines = [json.loads(x) for x in proc.stdout.splitlines()
+             if x.startswith("{")]
+    want_n = len(bench.BENCHES) + len(bench.STAGES)
+    check(len(lines) == want_n, f"cli bench: {len(lines)} lines, expected "
+          f"{want_n}")
+    check([x["metric"] for x in lines if x["config"] == "stages"][:-1]
+          == [f"stage_{k}_ms" for k in bench.STAGES], "cli bench: stage rows")
+    name, limit = torch.cuda.get_device_name(0), card.rsplit(",", 1)[-1]
+    for x in lines:
+        check(x["value"] > 0 and x["vs_baseline"] is None,
+              f"cli bench {x['metric']}: value {x['value']}, vs_baseline "
+              f"{x['vs_baseline']}")
+        check(name in x["device"] and limit.strip() in x["device"],
+              f"cli bench {x['metric']}: device {x['device']!r} does not "
+              f"name {card!r}")
+    last = {x["config"]: x for x in lines}
+    check(set(last) == set(bench.BENCHES), f"cli bench: configs "
+          f"{sorted(last)}")
+    for cfg_name, kernels in BENCH_KERNELS.items():
+        got_k = last[cfg_name]["launches"]
+        for k in kernels:
+            check(got_k.get(k, 0) > 0, f"cli bench {cfg_name}: {k} did not "
+                  f"launch ({got_k})")
+        if not kernels:
+            check(got_k == {}, f"cli bench {cfg_name}: launched {got_k}")
+    print(f"cli bench --config all [{card}]: exit 0, {len(lines)} lines in "
+          f"{took:.1f} s (its own process, the build loaded)", flush=True)
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--cameras"]:
         return camera_process(int(sys.argv[2]), int(sys.argv[3]),
@@ -4321,6 +4412,7 @@ def main() -> int:
     phase_capture(stats, card)
     phase_serve(stats, card)
     phase_dist(stats, card)
+    phase_bench(stats, card)
     print(f"whole run {time.perf_counter() - t_start:.1f} s", flush=True)
 
     for k, st in stats.items():

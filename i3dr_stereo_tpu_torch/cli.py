@@ -9,6 +9,7 @@
         --width 2448 --height 2048 --algorithm I3DRSGM
     python -m i3dr_stereo_tpu_torch.cli live --serve --duration 60
     python -m i3dr_stereo_tpu_torch.cli info
+    python -m i3dr_stereo_tpu_torch.cli bench --config all
 
 Mirrors the reference's launch arguments (stereo_algorithm,
 min_disparity, disparity_range, calibration paths, depth_max, ...;
@@ -16,7 +17,9 @@ launch/stereo_matcher.launch:20-143). ``--device`` (default ``cuda``)
 picks where the matcher runs: the card unless the caller asks for the
 CPU, and a missing card raises. ``live`` runs the synthetic source, two
 GigE Vision cameras (``--gige``) and the operator's HTTP loop
-(``--serve``).
+(``--serve``). ``bench`` runs the benchmark configurations of
+:mod:`i3dr_stereo_tpu_torch.bench` (one JSON line each; exit code 1 if
+any failed).
 """
 
 from __future__ import annotations
@@ -268,6 +271,12 @@ def cmd_calibrate(args) -> int:
     return 0
 
 
+def cmd_bench(args) -> int:
+    from i3dr_stereo_tpu_torch import bench
+
+    return bench.run(args.config, device=args.device)
+
+
 def cmd_info(args) -> int:
     import torch
 
@@ -347,6 +356,17 @@ def main(argv=None) -> int:
     p.add_argument("--name", default="stereo")
     p.add_argument("--store", default=None, help="calibration store directory")
     p.set_defaults(fn=cmd_calibrate)
+
+    p = sub.add_parser("bench", help="run benchmark configurations (one "
+                       "JSON line each)")
+    p.add_argument("--config", default="flagship",
+                   help="flagship, e2e_2448, flagship_flat, sgbm_1280, "
+                        "bm_640, pipeline_batch, sgm_direct_2448, stages, "
+                        "or all")
+    p.add_argument("--device", default="cuda",
+                   help="torch device (cuda: the card's kernels; cpu: "
+                        "their plain torch twins)")
+    p.set_defaults(fn=cmd_bench)
 
     args = ap.parse_args(argv)
     return args.fn(args)

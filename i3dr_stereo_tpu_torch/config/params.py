@@ -136,6 +136,19 @@ class MatcherConfig:
             census_height=census_h,
         )
 
+    # Shape-affecting fields: a change to any of these changes the shapes
+    # the matcher works on (its volumes, levels or planes); anything else
+    # is a runtime value of the same frame.
+    SHAPE_FIELDS = (
+        "algorithm", "min_disparity", "disparity_range", "window_size",
+        "downsample_scale", "num_directions", "cost", "census_width",
+        "census_height", "pyramid", "max_pyramid_level", "bp_iters",
+        "bp_levels", "csbp_planes",
+    )
+
+    def shape_key(self) -> tuple:
+        return tuple(getattr(self, f) for f in self.SHAPE_FIELDS)
+
     def replace(self, **kw) -> "MatcherConfig":
         return dataclasses.replace(self, **kw).sanitize()
 

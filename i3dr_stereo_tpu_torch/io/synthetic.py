@@ -1,7 +1,7 @@
 """Synthetic stereo scenes with analytic ground-truth disparity (torch
-port: a numpy copy of ``layered_scene`` from
+port: a numpy copy of ``layered_scene`` and ``slanted_scene`` from
 ``i3dr_stereo_tpu.io.synthetic``, bit-identical for the same seed —
-``tests/test_torch_config.py`` pins it).
+``tests/test_torch_config.py`` pins both).
 
 The reference has no test fixtures at all (SURVEY.md §4) — its only
 offline evaluation is bag replay on recorded data. This module provides
@@ -165,3 +165,49 @@ def layered_scene(height: int = 120, width: int = 160, *,
         occluded=occluded,
         valid=~occluded,
     )
+
+
+def slanted_scene(height: int = 120, width: int = 160, *,
+                  d_near: float = 20.0, d_far: float = 6.0,
+                  seed: int = 1,
+                  right_gain: float = 1.0,
+                  right_bias: float = 0.0,
+                  noise_sigma: float = 0.0) -> SyntheticScene:
+    """A single slanted plane: disparity varies linearly across x, with
+    subpixel ground truth — exercises parabolic subpixel refinement.
+
+    Rendered by sampling a continuous texture: L(y,x) = T(y, x),
+    R(y,x) = T(y, x + d(x_r)) with linear interpolation. Photometric
+    knobs as in :func:`layered_scene`.
+    """
+    rng = np.random.default_rng(seed)
+    H, W = height, width
+    pad = int(np.ceil(d_near)) + 2
+    big = _texture(rng, H, W + 2 * pad, smooth=3)
+
+    xs = np.arange(W)
+    # disparity as a function of LEFT x
+    disp = d_far + (d_near - d_far) * xs / max(W - 1, 1)
+    disp2d = np.broadcast_to(disp, (H, W)).astype(np.float32).copy()
+
+    left = big[:, pad:pad + W].astype(np.float32)
+    # right view: find for each right x the left x with x_l - d(x_l) = x_r.
+    # With monotone mapping, invert numerically.
+    xl_of_xr = np.interp(xs, xs - disp, xs)
+    src = pad + xl_of_xr
+    i0 = np.floor(src).astype(int)
+    frac = src - i0
+    right = (big[:, i0] * (1 - frac) + big[:, i0 + 1] * frac).astype(np.float32)
+
+    if right_gain != 1.0 or right_bias != 0.0:
+        right = right * right_gain + right_bias
+    if noise_sigma > 0.0:
+        left = left + rng.normal(0.0, noise_sigma, left.shape)
+        right = right + rng.normal(0.0, noise_sigma, right.shape)
+    left = np.clip(left, 0.0, 255.0).astype(np.float32)
+    right = np.clip(right, 0.0, 255.0).astype(np.float32)
+
+    occluded = np.zeros((H, W), bool)
+    occluded[:, : int(np.ceil(d_near))] = True  # left strip has no right match
+    return SyntheticScene(left=left, right=right, disparity=disp2d,
+                          occluded=occluded, valid=~occluded)

@@ -109,10 +109,27 @@ struct Rx {
   uint64_t packets = 0, frames = 0, dropped = 0, resend_runs = 0,
            recovered = 0, invalidated = 0;
 
+  // ids of the blocks completed last: a stray packet of one of them (a
+  // duplicate, a late resend) is dropped, where a new entry for it could
+  // evict a block still filling
+  static constexpr int kRecent = 16;
+  uint16_t recent[kRecent] = {};
+  int n_recent = 0, recent_pos = 0;
+
+  bool completed_recently(uint16_t bid) const {
+    for (int i = 0; i < n_recent; i++)
+      if (recent[i] == bid) return true;
+    return false;
+  }
+
+  // the block's entry, a new one where it has none (evicting the oldest
+  // incomplete block when every entry is in use), or nullptr for a stray
+  // packet of a block completed recently
   Block* find(uint16_t bid, double now) {
     Block* oldest = nullptr;
     for (auto& b : blocks)
       if (b.used && b.block_id == bid) return &b;
+    if (completed_recently(bid)) return nullptr;
     for (auto& b : blocks) {
       if (!b.used) { oldest = &b; break; }
       if (!oldest || b.created < oldest->created) oldest = &b;
@@ -168,6 +185,9 @@ struct Rx {
     frames++;
     if (b.resend_rounds) recovered++;
     done.push_back(b.slot);
+    recent[recent_pos] = b.block_id;
+    recent_pos = (recent_pos + 1) % kRecent;
+    if (n_recent < kRecent) n_recent++;
     b.slot = -1;
     release(b, true);
   }
@@ -191,6 +211,7 @@ struct Rx {
       last_rx = now;
       packets++;
       Block* b = find(bid, now);
+      if (!b) continue;             // a stray of a completed block
       b->last_update = now;
       if (fmt == FMT_LEADER) {
         if (blen >= 24) {

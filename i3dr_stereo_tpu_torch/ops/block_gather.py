@@ -86,3 +86,14 @@ def block_shift_gather(src: torch.Tensor, idx: torch.Tensor, q: torch.Tensor,
                   B, H, W, q.shape[1], q.shape[2], int(radius),
                   _build.stream_of(src))
     return out
+
+
+def gather_along_rows_reference(src: torch.Tensor,
+                                idx: torch.Tensor) -> torch.Tensor:
+    """out[b, y, x] = src[b, y, clip(x - idx[b, y, x], 0, W-1)] with no
+    anchor clamp (``torch.gather``; the reference's ``take_along_axis``
+    form, for tests)."""
+    W = src.shape[-1]
+    xs = torch.arange(W, dtype=torch.int32, device=src.device)
+    col = (xs - idx.to(torch.int32)).clamp(0, W - 1).long()
+    return torch.gather(src, 2, col)

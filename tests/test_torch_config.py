@@ -13,10 +13,11 @@ import torch
 from i3dr_stereo_tpu.config import params as ref_params
 from i3dr_stereo_tpu.core import camera as ref_camera
 from i3dr_stereo_tpu.io.synthetic import layered_scene as ref_layered_scene
+from i3dr_stereo_tpu.io.synthetic import slanted_scene as ref_slanted_scene
 from i3dr_stereo_tpu_torch.config import params
 from i3dr_stereo_tpu_torch.convert import config_from_reference, rig_from_reference
 from i3dr_stereo_tpu_torch.core import camera
-from i3dr_stereo_tpu_torch.io.synthetic import layered_scene
+from i3dr_stereo_tpu_torch.io.synthetic import layered_scene, slanted_scene
 
 torch.set_num_threads(2)
 
@@ -111,6 +112,60 @@ def test_layered_scene_bit_identical(kw):
         np.testing.assert_array_equal(x, y, err_msg=f)
 
 
+@pytest.mark.parametrize("kw", [
+    {},
+    dict(height=64, width=96, d_near=12.0, d_far=3.5, seed=4, right_gain=1.1,
+         right_bias=-3.0),
+    dict(height=48, width=80, seed=9, noise_sigma=2.5),
+])
+def test_slanted_scene_bit_identical(kw):
+    import i3dr_stereo_tpu_torch.io as port_io
+
+    assert port_io.slanted_scene is slanted_scene
+    a, b = slanted_scene(**kw), ref_slanted_scene(**kw)
+    for f in ("left", "right", "disparity", "occluded", "valid"):
+        x, y = getattr(a, f), getattr(b, f)
+        assert x.dtype == y.dtype, f
+        np.testing.assert_array_equal(x, y, err_msg=f)
+
+
+@pytest.mark.parametrize("kw", [
+    {}, dict(disparity_range=100, window_size=6, census_width=20),
+    dict(downsample_scale=0.5, num_directions=8, pyramid=False, p1=7.0),
+])
+def test_shape_key_matches_reference(kw):
+    assert params.MatcherConfig.SHAPE_FIELDS == \
+        ref_params.MatcherConfig.SHAPE_FIELDS
+    for alg in ref_params.Algorithm:
+        ref = ref_params.ALGORITHM_DEFAULTS[alg].replace(**kw)
+        port = config_from_reference(ref)
+        def plain(key):    # the two packages' enums by name and value
+            return [(v.name, v.value) if hasattr(v, "name") else v
+                    for v in key]
+
+        assert plain(port.shape_key()) == plain(ref.shape_key())
+
+
+def test_gather_along_rows_reference_matches():
+    """Bit-equal to the JAX package's ``take_along_axis`` form on a seeded
+    input whose shifts reach past both image edges."""
+    import jax.numpy as jnp
+
+    from i3dr_stereo_tpu.ops.block_gather import (
+        gather_along_rows_reference as ref_gather)
+    from i3dr_stereo_tpu_torch.ops.block_gather import (
+        gather_along_rows_reference)
+
+    rng = np.random.default_rng(11)
+    src = rng.normal(size=(2, 9, 37)).astype(np.float32)
+    idx = rng.integers(-45, 45, (2, 9, 37)).astype(np.int32)
+    got = gather_along_rows_reference(torch.from_numpy(src),
+                                      torch.from_numpy(idx)).numpy()
+    want = np.asarray(ref_gather(jnp.asarray(src), jnp.asarray(idx)))
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
+
+
 def test_to_mono_matches_reference():
     """A BGR uint8 image goes through the luma sum of both packages. The
     port adds three float32 products left to right; the reference calls
@@ -195,7 +250,7 @@ def test_cuda_device_raises_without_cuda():
     "GenerateDisparityNode", "RectifyNode", "DisparityToDepthNode",
     "CropByDisparityNode", "warmup_matchers", "launch_stereo_matcher",
     "launch_stereo_camera", "launch_processing", "launch_replay",
-    "cli_match", "cli_live", "cli_replay", "DeviceMem", "Frame",
+    "cli_match", "cli_live", "cli_replay", "cli_bench", "DeviceMem", "Frame",
     "StereoFrame"])
 def test_entry_points_default_to_the_card(entry, tmp_path):
     """Without ``device`` the entry points run on the card; with no card
@@ -239,6 +294,7 @@ def test_entry_points_default_to_the_card(entry, tmp_path):
                                        "-o", str(tmp_path / "out")]),
         "cli_live": lambda: cli.main(["live", "--frames", "1"]),
         "cli_replay": lambda: cli.main(["replay", str(tmp_path)]),
+        "cli_bench": lambda: cli.main(["bench", "--config", "bm_640"]),
         "DeviceMem": lambda: DeviceMem(),
         "Frame": lambda: frame.Frame.create(np.zeros((4, 4))),
         "StereoFrame": lambda: frame.StereoFrame.create(np.zeros((4, 4)),

@@ -45,13 +45,33 @@ COPIES = ("bridge/graph", "bridge/services", "bridge/reconfigure",
 # reference's lines are in tests/test_torch_capture.py.
 FIXES = {
     # gvsp_rx_poll_missing with room for one run writes it; the engine
-    # keeps each frame's first-packet time (gvsp_rx_popped_received)
+    # keeps each frame's first-packet time (gvsp_rx_popped_received);
+    # Rx::find drops the stray packets of recently completed blocks
     "native/gvsp_rx.cpp": ([
         '      if (max_runs >= 2) { runs[0] = 0; runs[1] = 0; }',
     ], [
         "  double received = 0;              // host time of the block's 1st packet",
         '  double popped_received = 0;       // of the frame last popped',
+        '  // ids of the blocks completed last: a stray packet of one of them (a',
+        '  // duplicate, a late resend) is dropped, where a new entry for it could',
+        '  // evict a block still filling',
+        '  static constexpr int kRecent = 16;',
+        '  uint16_t recent[kRecent] = {};',
+        '  int n_recent = 0, recent_pos = 0;',
+        '  bool completed_recently(uint16_t bid) const {',
+        '    for (int i = 0; i < n_recent; i++)',
+        '      if (recent[i] == bid) return true;',
+        '    return false;',
+        '  }',
+        "  // the block's entry, a new one where it has none (evicting the oldest",
+        '  // incomplete block when every entry is in use), or nullptr for a stray',
+        '  // packet of a block completed recently',
+        '    if (completed_recently(bid)) return nullptr;',
         '    s.received = b.created;',
+        '    recent[recent_pos] = b.block_id;',
+        '    recent_pos = (recent_pos + 1) % kRecent;',
+        '    if (n_recent < kRecent) n_recent++;',
+        '      if (!b) continue;             // a stray of a completed block',
         '  rx->popped_received = s.received;',
         '      if (max_runs >= 1) { runs[0] = 0; runs[1] = 0; }',
         '// Host monotonic time (s) at which the first packet of the frame last',
