@@ -58,6 +58,15 @@ from i3dr_stereo_tpu_torch.io.savers import save_stereo, save_png
 from i3dr_stereo_tpu_torch.ops.depth import pointcloud_to_numpy
 from i3dr_stereo_tpu_torch.pipeline.pairing import ApproximateTimeSync
 from i3dr_stereo_tpu_torch.pipeline.stereo_pipeline import StereoPipeline
+from i3dr_stereo_tpu_torch.utils.metrics import GLOBAL_METRICS as METRICS
+
+
+def _host(topic: str, x) -> np.ndarray:
+    """``to_numpy`` of one output of ``topic``, spanned with its bytes."""
+    with METRICS.span("node.copy", topic=topic) as span:
+        a = to_numpy(x)
+        span.set(bytes=a.nbytes)
+    return a
 
 
 class GenerateDisparityNode(Node):
@@ -108,29 +117,36 @@ class GenerateDisparityNode(Node):
             self._process(l.stamp, l.data, r.data)
 
     def _process(self, stamp, left, right):
-        try:
-            res = self.pipeline.process(left, right)
-        except Exception as e:  # match failure: drop frame, keep running
-            self.frames_dropped += 1
-            self.publish("match_errors", stamp, repr(e))
-            return
-        self.frames_processed += 1
-        self._last = (stamp, left, right, res)
-        self.publish("left/image_rect", stamp, to_numpy(res.rect_left))
-        self.publish("right/image_rect", stamp, to_numpy(res.rect_right))
-        self.publish("disparity", stamp, {
-            "disparity": to_numpy(res.disparity),
-            "valid": to_numpy(res.valid),
-            "min_disparity": self.pipeline.config.min_disparity,
-            "disparity_range": self.pipeline.config.disparity_range,
-            "f": self.pipeline.rig.fx,
-            "T": self.pipeline.rig.baseline,
-        })
-        if res.depth is not None:
-            self.publish("depth", stamp, to_numpy(res.depth))
-        if res.points is not None:
-            self.publish("points2", stamp,
-                         {k: to_numpy(v) for k, v in res.points.items()})
+        with METRICS.span("node.frame", stamp=stamp):
+            try:
+                res = self.pipeline.process(left, right)
+            except Exception as e:  # match failure: drop frame, keep running
+                self.frames_dropped += 1
+                self._publish("match_errors", stamp, repr(e))
+                return
+            self.frames_processed += 1
+            self._last = (stamp, left, right, res)
+            self._publish("left/image_rect", stamp,
+                          _host("left/image_rect", res.rect_left))
+            self._publish("right/image_rect", stamp,
+                          _host("right/image_rect", res.rect_right))
+            self._publish("disparity", stamp, {
+                "disparity": _host("disparity", res.disparity),
+                "valid": _host("disparity", res.valid),
+                "min_disparity": self.pipeline.config.min_disparity,
+                "disparity_range": self.pipeline.config.disparity_range,
+                "f": self.pipeline.rig.fx,
+                "T": self.pipeline.rig.baseline,
+            })
+            if res.depth is not None:
+                self._publish("depth", stamp, _host("depth", res.depth))
+            if res.points is not None:
+                self._publish("points2", stamp, {
+                    k: _host("points2", v) for k, v in res.points.items()})
+
+    def _publish(self, topic, stamp, data):
+        with METRICS.span("node.publish", topic=topic):
+            self.publish(topic, stamp, data)
 
     # -- reconfigure ----------------------------------------------------------
     def _on_disparity_reconf(self, flat, changed):

@@ -78,6 +78,7 @@ from i3dr_stereo_tpu_torch.ops.speckle import speckle_filter
 from i3dr_stereo_tpu_torch.ops.subpix import halfpel_refine
 from i3dr_stereo_tpu_torch.ops.wls import wls_fill
 from i3dr_stereo_tpu_torch.ops.wta import wta_disparity
+from i3dr_stereo_tpu_torch.utils.metrics import GLOBAL_METRICS as METRICS
 
 
 def _downsample2(img: torch.Tensor) -> torch.Tensor:
@@ -166,74 +167,76 @@ def pyramid_sgm_match(left, right, cfg: MatcherConfig,
     dirs = DIRECTIONS_4 if n_dirs == 4 else DIRECTIONS_8
     disp = valid = cur_level = None
     for p in passes:
-        ll, rr = pyr_l[p.level], pyr_r[p.level]
-        Bh, Hh, Wh = ll.shape
-        if p.subpix_pass:
-            if disp is None:
+        with METRICS.span("pyramid.level", level=p.level):
+            ll, rr = pyr_l[p.level], pyr_r[p.level]
+            Bh, Hh, Wh = ll.shape
+            if p.subpix_pass:
+                if disp is None:
+                    continue
+                if cur_level != p.level:
+                    disp = _upsample2_disp(disp, Hh, Wh)
+                    cur_level = p.level
+                    valid = None
+                disp = halfpel_refine(ll, rr, disp,
+                                      torch.ones_like(disp, dtype=torch.bool),
+                                      step_size=p.step_size)
                 continue
-            if cur_level != p.level:
-                disp = _upsample2_disp(disp, Hh, Wh)
-                cur_level = p.level
-                valid = None
-            disp = halfpel_refine(ll, rr, disp,
-                                  torch.ones_like(disp, dtype=torch.bool),
-                                  step_size=p.step_size)
-            continue
-        K = max(8, p.num_disparities + 1)  # odd profile count -> even window
-        pens = tuple((p.p1[min(i, 3)], p.p2[min(i, 3)])
-                     for i in range(n_dirs))
-        if disp is None:
-            base_val = int(round(cfg.min_disparity / (2 ** p.level)
-                                 + p.prediction_shift))
-            pred_int = None
-        else:
-            pred = disp
-            while cur_level > p.level:
-                pred = _upsample2_disp(pred, pyr_l[cur_level - 1].shape[1],
-                                       pyr_l[cur_level - 1].shape[2])
-                cur_level -= 1
-            pred = median3x3(pred)
-            pred_int = torch.round(pred).to(torch.int32).clamp(0, Wh - 1)
-            base_val = 0
-        level_kw = dict(subpixel=(p.level == 0 and p.subpixel),
-                        uniqueness_ratio=p.uniqueness_ratio, plain=plain)
-        if lean:
-            disp, valid = _match_level_lean(
-                ll, rr, pred_int, base_val, K, pens, dirs,
-                (p.census_h, p.census_w), **level_kw)
-        else:
-            disp, valid, bm = _match_level_fused_t(
-                ll, rr, pred_int, base_val, K, pens, n_dirs,
-                (p.census_h, p.census_w), want_backmatch=p.backmatch,
-                **level_kw)
-        cur_level = p.level
-        # matched right column must land inside the image
-        xs = torch.arange(Wh, dtype=torch.int32, device=disp.device)
-        rcol = xs - torch.round(disp).to(torch.int32)
-        valid = valid & (rcol >= 0) & (rcol < Wh)
-        if p.backmatch and lean:
-            valid = _roundtrip_check(disp, valid, p.backmatch_dist)
-        elif p.backmatch:
-            valid = _backmatch_check_true(valid, bm, p.backmatch_dist, K,
-                                          plain=plain)
-        if p.speckle and p.speckle_max_region > 0:
-            valid = speckle_filter(disp, valid,
-                                   max_size=p.speckle_max_region,
-                                   max_diff=p.speckle_max_diff,
-                                   downsample=cfg.speckle_downsample,
-                                   plain=plain)
-        if p.occlusion_detection:
-            occ = detect_occlusions(disp, valid)
-            if p.interpolate_occlusions:
-                disp, valid = fill_occlusions(disp, valid, occ)
+            # odd profile count -> even window
+            K = max(8, p.num_disparities + 1)
+            pens = tuple((p.p1[min(i, 3)], p.p2[min(i, 3)])
+                         for i in range(n_dirs))
+            if disp is None:
+                base_val = int(round(cfg.min_disparity / (2 ** p.level)
+                                     + p.prediction_shift))
+                pred_int = None
             else:
-                valid = valid & ~occ
-        if p.median:
-            disp = median3x3_masked(disp, valid)
-        if p.level != 0:
-            disp = torch.where(valid, disp, median3x3(disp))
-        elif p.interpolate_gaps:
-            disp, valid = _fill_gaps(p, disp, valid, ll, plain=plain)
+                pred = disp
+                while cur_level > p.level:
+                    pred = _upsample2_disp(pred, pyr_l[cur_level - 1].shape[1],
+                                           pyr_l[cur_level - 1].shape[2])
+                    cur_level -= 1
+                pred = median3x3(pred)
+                pred_int = torch.round(pred).to(torch.int32).clamp(0, Wh - 1)
+                base_val = 0
+            level_kw = dict(subpixel=(p.level == 0 and p.subpixel),
+                            uniqueness_ratio=p.uniqueness_ratio, plain=plain)
+            if lean:
+                disp, valid = _match_level_lean(
+                    ll, rr, pred_int, base_val, K, pens, dirs,
+                    (p.census_h, p.census_w), **level_kw)
+            else:
+                disp, valid, bm = _match_level_fused_t(
+                    ll, rr, pred_int, base_val, K, pens, n_dirs,
+                    (p.census_h, p.census_w), want_backmatch=p.backmatch,
+                    **level_kw)
+            cur_level = p.level
+            # matched right column must land inside the image
+            xs = torch.arange(Wh, dtype=torch.int32, device=disp.device)
+            rcol = xs - torch.round(disp).to(torch.int32)
+            valid = valid & (rcol >= 0) & (rcol < Wh)
+            if p.backmatch and lean:
+                valid = _roundtrip_check(disp, valid, p.backmatch_dist)
+            elif p.backmatch:
+                valid = _backmatch_check_true(valid, bm, p.backmatch_dist, K,
+                                              plain=plain)
+            if p.speckle and p.speckle_max_region > 0:
+                valid = speckle_filter(disp, valid,
+                                       max_size=p.speckle_max_region,
+                                       max_diff=p.speckle_max_diff,
+                                       downsample=cfg.speckle_downsample,
+                                       plain=plain)
+            if p.occlusion_detection:
+                occ = detect_occlusions(disp, valid)
+                if p.interpolate_occlusions:
+                    disp, valid = fill_occlusions(disp, valid, occ)
+                else:
+                    valid = valid & ~occ
+            if p.median:
+                disp = median3x3_masked(disp, valid)
+            if p.level != 0:
+                disp = torch.where(valid, disp, median3x3(disp))
+            elif p.interpolate_gaps:
+                disp, valid = _fill_gaps(p, disp, valid, ll, plain=plain)
 
     # bring the estimate to full resolution if the finest enabled level
     # was coarser than 0

@@ -253,17 +253,17 @@ def test_frames_and_to_uint8():
 def test_metrics_and_device_memory(tmp_path):
     from i3dr_stereo_tpu.utils.device_memory import DeviceMem as RefMem
     from i3dr_stereo_tpu_torch.utils.device_memory import DeviceMem
-    from i3dr_stereo_tpu_torch.utils.metrics import (
-        Metrics, StageTimer, device_trace, wait_for)
+    from i3dr_stereo_tpu_torch.utils.metrics import Metrics, device_trace
 
     m = Metrics()
     t = torch.ones(4)
-    with StageTimer(m).stage("cpu", block_on={"a": [t, (t,)]}):
+    with m.time("cpu"), m.span("cpu"):
         t = t + 1
     assert m.summary()["stages"]["cpu"]["count"] == 1
-    wait_for(None)
     with device_trace(str(tmp_path / "trace")):
-        torch.ones(8).sum()
+        with m.span("sum"):
+            torch.ones(8).sum()
+    assert [s.name for s in m.spans()] == ["sum"]
     assert os.path.exists(tmp_path / "trace" / "trace.json")
     mem = DeviceMem("cpu")
     ref = RefMem()
