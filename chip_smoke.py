@@ -348,11 +348,14 @@ SOURCES = {
                        "i3dr_stereo_tpu/mapping/tsdf.py:39"),
     "icp_step": ("i3dr_stereo_tpu_torch/csrc/icp_step.cu",
                  "i3dr_stereo_tpu/mapping/odometry.py:112"),
+    # SGBM's BT cost and box sum: XLA in the reference, no pallas_call
+    "bt_box_cost": ("i3dr_stereo_tpu_torch/csrc/bt_box_cost.cu",
+                    "i3dr_stereo_tpu/ops/cost.py:102,151"),
 }
 # the kernels of each main path: the flagship frame, the SGBM frame
 FLAGSHIP_KERNELS = ("census_transform", "census_cost", "sgm_sweep",
                     "sgm_sweep_wta", "row_gather", "remap", "speckle_ccl")
-SGBM_KERNELS = ("remap", "sgm_volume")
+SGBM_KERNELS = ("remap", "bt_box_cost", "sgm_volume")
 LEAN_FLAGSHIP_KERNELS = ("census_transform", "fused_census_fwd",
                          "sgm_volume", "speckle_ccl", "remap")
 LEAN_SGBM_KERNELS = ("remap", "fused_bt_fwd", "sgm_volume")
@@ -373,7 +376,7 @@ KERNEL_SYMBOLS = ("census_cost_kernel", "sgm_sweep_kernel",
                   "census_fixed_kernel", "census_any_kernel",
                   "gauss_rays_kernel", "wls_lines_kernel",
                   "bp_messages_", "bp_planes_kernel", "tsdf_kernel",
-                  "icp_track_kernel")
+                  "icp_track_kernel", "bt_box_cost_kernel")
 # accuracy_bench.py:sgbm_1280's scene and size
 H_SGBM, W_SGBM = 1024, 1280
 SGBM_SCENE = dict(max_disp=120, background_disp=8, layers=5, seed=21)
@@ -1708,7 +1711,9 @@ def phase_sgbm(stats, card):
     rig = pipe.rig
 
     res = drive_frame(pipe, left, right, sc, SGBM_KERNELS, "SGBM frame",
-                      stats, record=("sgm_volume",))
+                      stats, record=("sgm_volume", "bt_box_cost"))
+    check(_build.LAUNCHES["bt_box_cost"] == 1, "SGBM frame: bt_box_cost "
+          "launched other than once")
 
     # the same matcher through the plain twins on the card, small scene
     small = layered_scene(256, 320, max_disp=40, seed=2)
@@ -1765,6 +1770,98 @@ def phase_sgbm(stats, card):
     print(f"SGBM peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     return pipe, left, right
+
+# ---------------------------------------------------------------------------
+# phase 8b: SGBM's BT cost and box sum at the sgbm_1920 cell's shape
+# ---------------------------------------------------------------------------
+
+# portbench/configs/sgbm_1920.json: 1920x1080, 480 disparities from 147,
+# window 9, prefilter cap 31
+H_BOX, W_BOX, D_BOX, MIN_D_BOX, WIN_BOX = 1080, 1920, 480, 147, 9
+
+
+def box_pair(H, W, seed=5):
+    """A (1, H, W) prefiltered pair as the sgbm_1920 cell's matcher sees
+    it: a layered scene in its range of disparities, resampled a fraction
+    of a pixel (as rectification leaves it) and through the x-Sobel
+    prefilter, so the costs are fractional."""
+    from i3dr_stereo_tpu_torch.io.synthetic import layered_scene
+    from i3dr_stereo_tpu_torch.ops.cost import xsobel_prefilter
+
+    sc = layered_scene(H, W, max_disp=600, background_disp=160, layers=6,
+                       seed=seed)
+    out = []
+    for img in (sc.left, sc.right):
+        t = torch.tensor(img, dtype=torch.float32, device=DEVICE)[None]
+        t = 0.37 * t + 0.63 * torch.roll(t, 1, -1)
+        out.append(xsobel_prefilter(t, 31).contiguous())
+    return out
+
+
+def phase_bt_box(stats, card):
+    """``bt_box_cost`` against its plain twin (``box_aggregate(
+    *bt_cost_volume(...))`` on the card), bit-equal, at the sgbm_1920
+    cell's shape and at other windows (its two passes at 21); its
+    time by events and back to back against its bound (the two images read
+    once, the volume written once); the twin's device activities counted
+    by the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from i3dr_stereo_tpu_torch.ops import cost
+
+    lf, rf = box_pair(H_BOX, W_BOX)
+    args = (lf, rf, MIN_D_BOX, D_BOX)
+
+    def twin(win):
+        return cost.box_aggregate(*cost.bt_cost_volume(*args), win)
+
+    # 15 runs the one pass at r = 7, 21 the two passes
+    for win in (WIN_BOX, 1, 5, 11, 15, 21):
+        got = cost.bt_box_cost_volume(*args, win)
+        ref, plain_ms = timed(lambda: twin(win))
+        err = (got.double() - ref.double()).abs().max().item()
+        stats["bt_box_cost"]["err"] = max(stats["bt_box_cost"]["err"], err)
+        check(torch.equal(got, ref), f"bt_box_cost window {win} differs "
+              f"from its twin (max {err})")
+        big = (got >= 5e8).float().mean().item()
+        del got, ref
+        ms = gpu_ms(lambda: cost.bt_box_cost_volume(*args, win))
+        print(f"bt_box_cost {W_BOX}x{H_BOX}x{D_BOX} from {MIN_D_BOX}, window "
+              f"{win}: bit-equal to its twin ({big:.4f} of it 1e9); "
+              f"[{card}] {ms:.4f} ms by events, twin {plain_ms:.1f} ms "
+              f"(one call)", flush=True)
+        if win == WIN_BOX:
+            stats["bt_box_cost"]["plain_ms"] = plain_ms
+            stats["bt_box_cost"]["ms"] = ms
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        twin(WIN_BOX)
+        torch.cuda.synchronize()
+    spans = device_spans(prof)
+    per_name: dict[str, list] = {}
+    for s0, e0, name in spans:
+        acc = per_name.setdefault(name, [0, 0.0])
+        acc[0] += 1
+        acc[1] += e0 - s0
+    print(f"the twin's device activities at window {WIN_BOX}: {len(spans)}, "
+          f"busy {busy_ms(spans):.3f} ms", flush=True)
+    for name, (n, t) in sorted(per_name.items(),
+                               key=lambda kv: -kv[1][1])[:8]:
+        print(f"  {t / 1e3:8.3f} ms {n:4d}x  {name[:90]}", flush=True)
+
+    b2b = back_to_back_ms(
+        lambda: cost.bt_box_cost_volume(*args, WIN_BOX), iters=20)
+    n = H_BOX * W_BOX * D_BOX
+    nbytes = 2 * H_BOX * W_BOX * 4 + 4 * n
+    set_bound(stats, "bt_box_cost", nbytes, (9 + 2 * (WIN_BOX - 1)) * n)
+    st = stats["bt_box_cost"]
+    st["back_to_back_ms"] = b2b
+    print(f"bt_box_cost [{card}]: {st['ms']:.4f} ms by events, {b2b:.4f} "
+          f"back to back; bound {st['bound_ms']:.4f} ms ({st['bound_by']}: "
+          f"{nbytes / 1e9:.3f} GB once): {st['bound_ms'] / st['ms']:.1%} / "
+          f"{st['bound_ms'] / b2b:.1%} of it; "
+          f"{nbytes / b2b / 1e6:.1f} GB/s reached", flush=True)
+
 
 # ---------------------------------------------------------------------------
 # phase 9: the fused cost + SGM kernels against their plain twins
@@ -4260,7 +4357,7 @@ MATCHER_KERNELS = tuple(k for k in FLAGSHIP_KERNELS if k != "remap")
 BENCH_KERNELS = {
     "flagship": MATCHER_KERNELS,
     "flagship_flat": MATCHER_KERNELS,
-    "sgbm_1280": ("sgm_volume",),
+    "sgbm_1280": ("bt_box_cost", "sgm_volume"),
     "bm_640": (),                     # plain torch in both packages
     "pipeline_batch": SGBM_KERNELS,   # the ideal rig is rectified too
     "sgm_direct_2448": ("census_transform", "fused_census_fwd", "sgm_volume",
@@ -4395,6 +4492,7 @@ def main() -> int:
     phase_profile(*phase_main_path(stats, card), card)
     phase_volume(stats)
     phase_profile(*phase_sgbm(stats, card), card, label="SGBM")
+    phase_bt_box(stats, card)
     phase_fused(stats, card)
     phase_profile(*phase_lean_flagship(stats, card), card,
                   label="lean flagship")

@@ -41,7 +41,8 @@ LAUNCHES = {"census_cost": 0, "sgm_sweep": 0, "sgm_sweep_wta": 0,
             "row_gather": 0, "remap": 0, "speckle_ccl": 0, "sgm_volume": 0,
             "fused_census_fwd": 0, "fused_bt_fwd": 0, "census_transform": 0,
             "gauss_rays": 0, "wls_lines": 0, "bp_messages": 0,
-            "bp_planes": 0, "tsdf_integrate": 0, "icp_step": 0}
+            "bp_planes": 0, "tsdf_integrate": 0, "icp_step": 0,
+            "bt_box_cost": 0}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _L = ctypes.c_longlong
@@ -78,6 +79,8 @@ _SIGNATURES = {
     # left, right, base, th, C, S, s_i16, B, H, W, D, min_disp, p1, p2, stream
     "i3dr_fused_bt_fwd": (_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                           _F, _P),
+    # left, right, out, scratch, B, H, W, D, min_disp, radius, stream
+    "i3dr_bt_box_cost": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # d, v, table, out, vout, B, H, W, n_dir, rounds, radius,
     # inv_two_sig2, min_rays, stream
     "i3dr_gauss_rays": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F,

@@ -51,6 +51,7 @@ from i3dr_stereo_tpu_torch.ops.census import (census_cost_volume,
 from i3dr_stereo_tpu_torch.ops.block_gather import pad_edge
 from i3dr_stereo_tpu_torch.ops.cost import (
     box_aggregate,
+    bt_box_cost_volume,
     bt_cost_volume,
     normalized_response_prefilter,
     sad_cost_volume,
@@ -179,7 +180,8 @@ def sgbm_match(left, right, cfg: MatcherConfig, *,
                lean: bool = False) -> MatchResult:
     """Semi-global block matching (cv::StereoSGBM semantics): BT costs on
     the prefiltered pair, box sum over the window, N-path SGM, WTA with
-    uniqueness, LR check, speckle, parabolic subpixel.
+    uniqueness, LR check, speckle, parabolic subpixel. With the BT cost the
+    cost and its box sum are one ``bt_box_cost`` launch on the card.
 
     ``lean=True`` with the BT cost and ``window_size <= 1`` takes the
     reference's lean branch: pixelwise BT in doubled units fused with the
@@ -202,8 +204,13 @@ def sgbm_match(left, right, cfg: MatcherConfig, *,
         valid = valid & (C.amin(-1) < 255)
         disp, valid = _postprocess(disp, valid, S.to(torch.float32), cfg, l)
         return _result(disp, valid, batched)
-    C, valid_cv = _cost_volume(l, r, cfg)
-    C = box_aggregate(C, valid_cv, cfg.window_size)
+    if cfg.cost == CostFunction.BT:
+        C = bt_box_cost_volume(xsobel_prefilter(l, cfg.prefilter_cap),
+                               xsobel_prefilter(r, cfg.prefilter_cap),
+                               cfg.min_disparity, cfg.disparity_range,
+                               cfg.window_size)
+    else:
+        C = box_aggregate(*_cost_volume(l, r, cfg), cfg.window_size)
     S = sgm_aggregate(C, cfg.p1, cfg.p2, _directions(cfg))
     disp, valid = wta_disparity(S, cfg.min_disparity,
                                 uniqueness_ratio=cfg.uniqueness_ratio,

@@ -3,12 +3,16 @@
 prefilters, the Birchfield–Tomasi and SAD cost volumes, the box
 aggregation over the correlation window and the BM texture response.
 
-Plain torch on every device (the JAX package has no Pallas kernel
-here). The sums keep the reference's float32 summation order, so the
-results equal it bit for bit on fractional images too: a box sum adds
-the window's taps in order, over H and then W; the normalized-response
-window sum is a difference of two cumulative sums taken in the blocked
-order XLA's cumulative reduce-window uses.
+Plain torch (the JAX package computes these in XLA, with no Pallas
+kernel), but for SGBM's aggregated BT cost on the card:
+:func:`bt_box_cost_volume` launches the ``bt_box_cost`` kernel
+(``csrc/bt_box_cost.cu``), the BT cost and its box sum in one pass, and
+runs the plain twin on a CPU tensor. The sums keep the reference's
+float32 summation order, so the results equal it bit for bit on
+fractional images too: a box sum adds the window's taps in order, over H
+and then W; the normalized-response window sum is a difference of two
+cumulative sums taken in the blocked order XLA's cumulative
+reduce-window uses.
 """
 
 from __future__ import annotations
@@ -16,10 +20,12 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from i3dr_stereo_tpu_torch import _build
 from i3dr_stereo_tpu_torch.ops.shift import gather_disparity_shifted
 
 BIG_COST = 1.0e9
 _SCAN_BLOCK = 16       # XLA rewrites a cumulative sum into blocks of 16
+_BOX_RING_RADIUS = 8   # bt_box_cost's one pass; wider takes two, via scratch
 
 
 def _as_batch(image: torch.Tensor):
@@ -167,6 +173,38 @@ def box_aggregate(C: torch.Tensor, valid: torch.Tensor,
         return C
     summed = box_sum(torch.where(valid, C, 0.0), window, axes=(1, 2))
     return torch.where(valid, summed, BIG_COST)
+
+
+def bt_box_cost_volume(left: torch.Tensor, right: torch.Tensor,
+                       min_disparity: int, disparity_range: int,
+                       window: int) -> torch.Tensor:
+    """SGBM's aggregated BT cost, (B, H, W, D) float32:
+    ``box_aggregate(*bt_cost_volume(left, right, ...), window)`` on the
+    (B, H, W) prefiltered images, BIG_COST where (x, d) is invalid. A CPU
+    tensor runs that plain twin; any other tensor launches the
+    ``bt_box_cost`` kernel, which is bit-equal to it at every window, or
+    raises. Windows of 19 and wider take the kernel's two passes through a
+    scratch volume of the output's shape."""
+    if left.device.type == "cpu":
+        return box_aggregate(*bt_cost_volume(left, right, min_disparity,
+                                             disparity_range), window)
+    if left.ndim != 3 or left.shape != right.shape:
+        raise ValueError(f"bt_box_cost_volume: (B, H, W) images of one "
+                         f"shape, got {tuple(left.shape)} and "
+                         f"{tuple(right.shape)}")
+    left, right = (x.to(torch.float32).contiguous() for x in (left, right))
+    _build.require_cuda(left, right)
+    B, H, W = left.shape
+    radius = max(window, 1) // 2
+    out = torch.empty((B, H, W, disparity_range), dtype=torch.float32,
+                      device=left.device)
+    scratch = torch.empty_like(out) if radius > _BOX_RING_RADIUS else None
+    _build.launch("i3dr_bt_box_cost", "bt_box_cost", left.device,
+                  left.data_ptr(), right.data_ptr(), out.data_ptr(),
+                  None if scratch is None else scratch.data_ptr(), B, H, W,
+                  disparity_range, int(min_disparity), radius,
+                  _build.stream_of(left))
+    return out
 
 
 def texture_response(prefiltered: torch.Tensor, window: int,

@@ -336,11 +336,16 @@ def test_kernel_wrappers_reject_non_cuda_accelerator_tensors():
 
 
 @pytest.mark.parametrize("op", ["remap", "speckle_keep", "gauss_rays",
-                                "wls_lines"])
+                                "wls_lines", "bt_box_cost"])
 def test_new_kernel_wrappers_reject_non_cuda_accelerator_tensors(op):
-    from i3dr_stereo_tpu_torch.ops import gauss_interp, rectify, speckle, wls
+    from i3dr_stereo_tpu_torch.ops import (cost, gauss_interp, rectify,
+                                           speckle, wls)
 
-    if op == "gauss_rays":
+    if op == "bt_box_cost":
+        img = torch.zeros((1, 8, 16), device="meta")
+        with pytest.raises(ValueError, match="CUDA"):
+            cost.bt_box_cost_volume(img, img, 0, 8, 9)
+    elif op == "gauss_rays":
         d = torch.zeros((1, 8, 16), device="meta")
         v = torch.zeros((1, 8, 16), dtype=torch.bool, device="meta")
         with pytest.raises(ValueError, match="CUDA"):

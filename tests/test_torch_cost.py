@@ -74,6 +74,32 @@ def test_cost_volumes_and_box_aggregate(kind, min_d, D):
             _eq(cost.box_aggregate(C, v, win), rc.box_aggregate(Cr, vr, win))
 
 
+@pytest.mark.parametrize("B", [1, 2])
+@pytest.mark.parametrize("min_d", [0, 5, 40])
+@pytest.mark.parametrize("window", [1, 3, 5, 9, 11, 15, 21])
+@pytest.mark.parametrize("kind", ["int", "frac"])
+def test_bt_box_cost_volume_twin(kind, window, min_d, B):
+    """``bt_box_cost_volume``'s plain twin (the route of a CPU tensor and
+    what the ``bt_box_cost`` kernel is held to) against the reference's
+    box_aggregate(*bt_cost_volume(...)). 21x75 (not multiples of 8), D =
+    40 (a full and a partial tile of 32 disparities); min_d = 40 leaves
+    the first 40 columns with no valid disparity."""
+    rng = np.random.default_rng(100 * window + min_d + B)
+    a = rng.uniform(0, 62, (2, B, 21, 75))
+    if kind == "int":
+        a = np.round(a)
+    left, right = a.astype(np.float32)
+    D = 40
+    got = cost.bt_box_cost_volume(torch.from_numpy(left),
+                                  torch.from_numpy(right), min_d, D, window)
+    ref = rc.box_aggregate(*rc.bt_cost_volume(jnp.asarray(left),
+                                              jnp.asarray(right), min_d, D),
+                           window)
+    _eq(got, ref)
+    assert bool((got[:, :, :min_d] == cost.BIG_COST).all())
+    assert bool((got < cost.BIG_COST).any())
+
+
 @pytest.mark.parametrize("kind", ["int", "frac"])
 def test_box_sum_and_texture(kind):
     left, _ = _images(kind, seed=7)
