@@ -165,7 +165,11 @@ final result line) on the first thing that is wrong:
     largest difference), 5 iterations at level 2's shape (1x128x256x320)
     and 3 at 13 ragged shapes (odd H and W; D = 1, 3, 4, 5, 8, 16, 17,
     64, 256, and 446 / 447, 901 and 1300 on both sides of the cut between
-    its two kernels; B = 2, H = 1, W = 1); ``bp_planes`` at
+    its two kernels; B = 2, H = 1, W = 1); the staged kernel at the
+    ``bp_1920`` cell's shapes (480 disparities: level 1, 1x480x540x960,
+    whole for 5 iterations; level 0, 1x480x1080x1920, one iteration
+    against the twin in 64-row slabs with a one-row halo, timed by events
+    and back to back beside its bound); ``bp_planes`` at
     1x4x1024x1280 (timed) and at 6 ragged
     shapes (K = 1, 2, 3, 4, 7, 16); then drives the BP frame and the
     CSBP frame (8's scene, raw uint8, rectified, the BP / CSBP defaults
@@ -2613,21 +2617,93 @@ def bp_iterate_cummin(data, msgs, jump, max_disc):
 
 
 def compare_bp(bp, data, msgs, iters, label, dvals=None):
-    """The kernel against its twin: bit-equal messages (torch.equal)."""
+    """The kernel against its twin: bit-equal messages (torch.equal). The
+    twin runs first: the kernel consumes ``msgs``."""
     if dvals is None:
-        k = bp.bp_iterate(data, msgs, iters, 1.0, 1.7)
         p = bp.bp_iterate(data, msgs, iters, 1.0, 1.7, plain=True)
+        k = bp.bp_iterate(data, msgs, iters, 1.0, 1.7)
         name = "bp_messages"
     else:
-        k = bp.bp_iterate_planes(data, dvals, msgs, iters, 1.0, 1.7)
         p = bp.bp_iterate_planes(data, dvals, msgs, iters, 1.0, 1.7,
                                  plain=True)
+        k = bp.bp_iterate_planes(data, dvals, msgs, iters, 1.0, 1.7)
         name = "bp_planes"
     torch.cuda.synchronize()
     check(bool(torch.isfinite(k).all()), f"{name} {label}: not finite")
     check(torch.equal(k, p), f"{name} {label}: differs from the twin (max "
           f"{(k - p).abs().max().item():.3g})")
     return k
+
+
+def compare_bp_slabs(bp, data, msgs, rows, label):
+    """One iteration of the kernel against its twin computed in slabs of
+    ``rows`` rows with one row of halo above and below, bit-equal (a
+    pixel's new message reads only its own data and its four neighbours'
+    messages, so a slab's own rows are exact). ``msgs`` is kept."""
+    k = bp.bp_iterate(data, msgs, 1, 1.0, 1.7)
+    H = data.shape[-2]
+    for y0 in range(0, H, rows):
+        y1 = min(y0 + rows, H)
+        lo, hi = max(y0 - 1, 0), min(y1 + 1, H)
+        p = bp.bp_iterate_plain(data[..., lo:hi, :].contiguous(),
+                                msgs[..., lo:hi, :].contiguous(), 1, 1.0,
+                                1.7)[..., y0 - lo:y1 - lo, :]
+        got = k[..., y0:y1, :]
+        check(bool(torch.isfinite(got).all()),
+              f"bp_messages {label}: not finite")
+        check(torch.equal(got, p), f"bp_messages {label}: rows {y0}-{y1} "
+              f"differ from the twin (max {(got - p).abs().max().item():.3g})")
+    return k
+
+
+def phase_bp_staged(stats, card, dev, gen):
+    """The staged ``bp_messages`` at the shapes ``bp_1920`` gives it
+    (1920x1080, 480 disparities from 0, the sum-pooled pyramid): level 1
+    in full for 5 iterations and level 0 for one iteration, against the
+    twin, then level 0 timed by events and back to back beside its
+    bound."""
+    from i3dr_stereo_tpu_torch.io.synthetic import layered_scene
+    from i3dr_stereo_tpu_torch.matchers import bp
+
+    D, H, W = 480, 1080, 1920
+    check(bp.messages_shared(D) == 0, f"bp_messages: D = {D} runs the "
+          f"strip kernel ({bp.messages_shared(D)} bytes), not the staged one")
+    st = stats["bp_messages"]
+    sc = layered_scene(H, W, max_disp=460, background_disp=160, layers=6,
+                       seed=23)
+    l = torch.tensor(sc.left, device=dev)[None]
+    r = torch.tensor(sc.right, device=dev)[None]
+    d0 = bp.data_cost(l, r, 0, D)
+    d1 = bp._pool2(d0)
+    m1 = 0.3 * torch.randn((4,) + d1.shape, device=dev, generator=gen)
+    compare_bp(bp, d1, m1, 5, f"level 1 {tuple(d1.shape)}, 5 iterations")
+    del d1, m1
+    torch.cuda.empty_cache()
+    m0 = 0.3 * torch.randn((4,) + d0.shape, device=dev, generator=gen)
+    compare_bp_slabs(bp, d0, m0, 64, f"level 0 {tuple(d0.shape)}, one "
+                     f"iteration")
+    torch.cuda.empty_cache()
+    # one iteration leaves m0 as it was
+    st["staged_ms"] = gpu_ms(lambda: bp.bp_iterate(d0, m0, 1, 1.0, 1.7),
+                             iters=5, warmup=1)
+    st["staged_back_to_back_ms"] = back_to_back_ms(
+        lambda: bp.bp_iterate(d0, m0, 1, 1.0, 1.7), iters=5, warmup=1)
+    # as set_bound counts the strip kernel's: 9 volumes, 30 operations
+    n = d0.numel()
+    st["staged_bound_ms"] = max(9 * n * 4 / PEAK_BYTES_S,
+                                30 * n / PEAK_OPS_S) * 1e3
+    print(f"bp_messages staged in device memory at bp_1920's shapes "
+          f"[{card}]: bit-equal at level 1 {(1, D, H // 2, W // 2)} (5 "
+          f"iterations, whole) and level 0 {tuple(d0.shape)} (one "
+          f"iteration, the twin in 64-row slabs with a one-row halo); level "
+          f"0 {st['staged_ms']:.3f} ms by events, "
+          f"{st['staged_back_to_back_ms']:.3f} ms back to back (bound "
+          f"{st['staged_bound_ms']:.3f} ms by bytes: "
+          f"{st['staged_bound_ms'] / st['staged_ms']:.1%} of it by events, "
+          f"{st['staged_bound_ms'] / st['staged_back_to_back_ms']:.1%} back "
+          f"to back)", flush=True)
+    del d0, m0
+    torch.cuda.empty_cache()
 
 
 def bp_pipe(alg):
@@ -2715,6 +2791,7 @@ def phase_bp(stats, card):
     print(f"bp_messages 3 iterations at {len(ragged)} ragged shapes: "
           f"bit-equal; 32-pixel strips at {by_kernel['strip']}; staged in "
           f"device memory at {by_kernel['staged']}", flush=True)
+    phase_bp_staged(stats, card, dev, gen)
 
     # --- bp_planes: K = 4 at 1x1024x1280, then ragged -----------------------
     st = stats["bp_planes"]

@@ -44,6 +44,17 @@ subtracted, and the mean is a sequential sum over d times the float32
 reciprocal of D (as XLA rewrites the division), so kernel and twin are
 bit-equal and the twin is within ulps of the reference (whose reduction
 order for the mean is XLA's).
+
+Memory and spans. Dense BP holds the cost pyramid (1.33 data volumes),
+one message volume (four data volumes) and, while a level iterates, its
+ping-pong buffer: the upsampled messages are written straight into their
+level's volume and handed to the kernel to overwrite, and the belief adds
+the four messages in place. The span ``bp.data_cost`` (``D``, ``H``,
+``W``) covers the data volume and its pyramid, ``bp.level`` (``level``,
+``H``, ``W``, ``iters``, ``bytes``: the level's message volume) a level's
+upsampling and iterations, ``bp.belief`` the belief and WTA; each counts
+``held_bytes`` on a CUDA device (``torch.cuda.memory_allocated`` at its
+end). They record only while the tracer does (``utils/metrics.py``).
 """
 
 from __future__ import annotations
@@ -58,6 +69,8 @@ from i3dr_stereo_tpu_torch.matchers.pyramid import _downsample2
 from i3dr_stereo_tpu_torch.ops.shift import gather_disparity_shifted
 from i3dr_stereo_tpu_torch.ops.speckle import speckle_filter
 from i3dr_stereo_tpu_torch.ops.wta import wta_disparity
+from i3dr_stereo_tpu_torch.utils.metrics import _OFF
+from i3dr_stereo_tpu_torch.utils.metrics import GLOBAL_METRICS as METRICS
 
 BIG = 1.0e9
 
@@ -190,11 +203,16 @@ def _pool2(x: torch.Tensor) -> torch.Tensor:
 
 def _upsample_msgs(m: torch.Tensor, H: int, W: int) -> torch.Tensor:
     """Nearest x2 of (..., h, w) to (..., H, W); the odd last row and
-    column stay zero."""
-    reps = m.repeat_interleave(2, -2).repeat_interleave(2, -1)
-    out = m.new_zeros(m.shape[:-2] + (H, W))
-    h, w = min(H, reps.shape[-2]), min(W, reps.shape[-1])
-    out[..., :h, :w] = reps[..., :h, :w]
+    column stay zero. Written straight into the output, one strided copy
+    for each of the 2x2 offsets (no repeated temporaries)."""
+    out = m.new_empty(m.shape[:-2] + (H, W))
+    h, w = min(H, 2 * m.shape[-2]), min(W, 2 * m.shape[-1])
+    out[..., h:, :] = 0
+    out[..., :h, w:] = 0
+    for a in (0, 1):
+        for b in (0, 1):
+            dst = out[..., a:h:2, b:w:2]
+            dst.copy_(m[..., :dst.shape[-2], :dst.shape[-1]])
     return out
 
 
@@ -232,12 +250,11 @@ def _check_volume(data: torch.Tensor, msgs: torch.Tensor,
 def _ping_pong(msgs: torch.Tensor, iters: int, launch) -> torch.Tensor:
     """``iters`` launches of ``launch(src, dst)``, each reading the
     previous messages and writing a second buffer (the update is
-    synchronous); the caller's buffer is never written."""
-    bufs = [torch.empty_like(msgs), None]
+    synchronous). The caller's buffer is that second buffer from the
+    second launch on: ``msgs`` is consumed (one message volume less)."""
+    bufs = (torch.empty_like(msgs), msgs)
     src = msgs
     for i in range(iters):
-        if bufs[i % 2] is None:
-            bufs[i % 2] = torch.empty_like(msgs)
         launch(src, bufs[i % 2])
         src = bufs[i % 2]
     return src
@@ -263,8 +280,9 @@ def bp_iterate(data: torch.Tensor, msgs: torch.Tensor, iters: int,
     """``iters`` synchronous min-sum updates of (4, B, D, H, W) messages
     over (B, D, H, W) data costs, any D >= 1. A CUDA tensor launches the
     ``bp_messages`` kernel once an iteration, the one
-    :func:`messages_shared` picks from D (or raises); a CPU tensor, or
-    ``plain=True``, runs :func:`bp_iterate_plain`."""
+    :func:`messages_shared` picks from D (or raises), and consumes
+    ``msgs`` (:func:`_ping_pong`); a CPU tensor, or ``plain=True``, runs
+    :func:`bp_iterate_plain`."""
     if plain or data.device.type == "cpu":
         return bp_iterate_plain(data, msgs, iters, jump, max_disc)
     _check_volume(data, msgs)
@@ -288,9 +306,9 @@ def bp_iterate_planes(data: torch.Tensor, dvals: torch.Tensor,
                       max_disc: float, *, plain: bool = False) -> torch.Tensor:
     """``iters`` min-sum updates on K candidate planes: data, dvals (B, K,
     H, W), msgs (4, B, K, H, W). A CUDA tensor launches the ``bp_planes``
-    kernel once an iteration (2 <= K <= 16, else it raises); a CPU
-    tensor, or ``plain=True``, runs :func:`bp_iterate_planes_plain` (any
-    K)."""
+    kernel once an iteration (2 <= K <= 16, else it raises) and consumes
+    ``msgs`` (:func:`_ping_pong`); a CPU tensor, or ``plain=True``, runs
+    :func:`bp_iterate_planes_plain` (any K)."""
     if plain or data.device.type == "cpu":
         return bp_iterate_planes_plain(data, dvals, msgs, iters, jump,
                                        max_disc)
@@ -390,6 +408,71 @@ def _constant_space_match(l, r, cfg: MatcherConfig, plain: bool):
     return dvals.gather(1, kbest)[:, 0], ok.gather(1, kbest)[:, 0]
 
 
+def _held(span, device: torch.device) -> None:
+    """A span's ``held_bytes``: what the caching allocator holds for
+    tensors at its end, a count on the host (no sync); CUDA only."""
+    if span is not _OFF and device.type == "cuda":
+        span.set(held_bytes=torch.cuda.memory_allocated(device))
+
+
+def _belief(data: torch.Tensor, msgs: torch.Tensor) -> torch.Tensor:
+    """``data + inc0 + inc1 + inc2 + inc3`` (:func:`_incoming`) in that
+    order, each message added in place over the pixels it reaches, with
+    no shifted copies. Elsewhere the sum would add a 0, which leaves it
+    unchanged: data is never -0.0, so no partial sum is."""
+    belief = data.clone()
+    H, W = data.shape[-2:]
+    for i, (dy, dx) in enumerate(_DIRS):
+        belief[..., max(dy, 0):H + min(dy, 0), max(dx, 0):W + min(dx, 0)] \
+            += msgs[i][..., max(-dy, 0):H + min(-dy, 0),
+                       max(-dx, 0):W + min(-dx, 0)]
+    return belief
+
+
+def _dense_match(l, r, cfg: MatcherConfig, plain: bool):
+    """BP on (B, H, W) images: the cost pyramid, the levels coarse to
+    fine, then the belief and WTA, each under a span of its own
+    (``bp.data_cost``, ``bp.level``, ``bp.belief``). Each level's message
+    volume is the only one beside the pyramid and its ping-pong buffer:
+    the upsampled messages are handed to :func:`bp_iterate` to overwrite.
+    Returns the disparity and validity, (B, H, W)."""
+    D = cfg.disparity_range
+    levels = max(1, min(cfg.bp_levels, 5))
+    iters = max(1, cfg.bp_iters)
+    with METRICS.span("bp.data_cost", D=D, H=l.shape[-2],
+                      W=l.shape[-1]) as span:
+        pyr = [data_cost(l, r, cfg.min_disparity, D)]
+        for _ in range(levels - 1):
+            if min(pyr[-1].shape[-2:]) < 8:
+                break
+            pyr.append(_pool2(pyr[-1]))
+        _held(span, l.device)
+
+    msgs = pyr[0].new_zeros((4,) + pyr[-1].shape)
+    for level in range(len(pyr) - 1, -1, -1):
+        data = pyr[level]
+        with METRICS.span("bp.level", level=level, H=data.shape[-2],
+                          W=data.shape[-1], iters=iters,
+                          bytes=4 * data.numel() * data.element_size()) \
+                as span:
+            if msgs.shape[-2:] != data.shape[-2:]:
+                msgs = _upsample_msgs(msgs, *data.shape[-2:])
+            msgs = bp_iterate(data, msgs, iters, DISC_SINGLE_JUMP,
+                              MAX_DISC_TERM, plain=plain)
+            _held(span, l.device)
+
+    with METRICS.span("bp.belief") as span:
+        belief = _belief(pyr[0], msgs)
+        del msgs, pyr, data
+        _, valid = gather_disparity_shifted(r, cfg.min_disparity, D)
+        belief = torch.where(valid, belief.permute(0, 2, 3, 1), BIG)
+        # no speckle filter: the reference's gate on it is dead on this path
+        disp, ok = wta_disparity(belief, cfg.min_disparity,
+                                 uniqueness_ratio=0.0, subpixel=cfg.subpixel)
+        _held(span, l.device)
+    return disp, ok
+
+
 def belief_propagation_match(left, right, cfg: MatcherConfig, *,
                              constant_space: bool,
                              plain: bool = False) -> MatchResult:
@@ -404,30 +487,7 @@ def belief_propagation_match(left, right, cfg: MatcherConfig, *,
                                 max_diff=max(cfg.speckle_range, 1.0),
                                 plain=plain)
     else:
-        D = cfg.disparity_range
-        levels = max(1, min(cfg.bp_levels, 5))
-        iters = max(1, cfg.bp_iters)
-        data0 = data_cost(l, r, cfg.min_disparity, D)
-        pyr = [data0]
-        for _ in range(levels - 1):
-            if min(pyr[-1].shape[-2:]) < 8:
-                break
-            pyr.append(_pool2(pyr[-1]))
-
-        msgs = data0.new_zeros((4,) + pyr[-1].shape)
-        for data in pyr[::-1]:
-            if msgs.shape[-2:] != data.shape[-2:]:
-                msgs = _upsample_msgs(msgs, *data.shape[-2:])
-            msgs = bp_iterate(data, msgs, iters, DISC_SINGLE_JUMP,
-                              MAX_DISC_TERM, plain=plain)
-
-        inc = _incoming(msgs)
-        belief = data0 + inc[0] + inc[1] + inc[2] + inc[3]
-        _, valid = gather_disparity_shifted(r, cfg.min_disparity, D)
-        belief = torch.where(valid, belief.permute(0, 2, 3, 1), BIG)
-        # no speckle filter: the reference's gate on it is dead on this path
-        disp, ok = wta_disparity(belief, cfg.min_disparity,
-                                 uniqueness_ratio=0.0, subpixel=cfg.subpixel)
+        disp, ok = _dense_match(l, r, cfg, plain)
     if not batched:
         disp, ok = disp[0], ok[0]
     return MatchResult(disparity=disp, valid=ok)
