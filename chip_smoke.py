@@ -193,7 +193,12 @@ final result line) on the first thing that is wrong:
     the matcher node with ``rectify=True`` and a ``RectifyNode`` on raw
     uint8 frames of the distorted rig publish images bit-equal to
     ``rectify_pair`` and to ``remap`` of the float32 frame, and
-    disparities bit-equal to ``process``; ``StreamRunner`` over 8
+    disparities bit-equal to ``process``; the node's copy stage
+    (``host_copies``) on the eight outputs of a flagship and of an SGBM
+    frame gives arrays bit-equal to ``.cpu()`` and allocates nothing
+    after its first frame, timed by host clock and by events beside a
+    plain page-locked copy of the same bytes (its bound) and beside
+    ``to_numpy``; ``StreamRunner`` over 8
     flagship pairs (raw uint8, rectified) at batch 1 with depth 0 and 2
     and at batch 2 with depth 2 gives disparities bit-equal to per-pair
     ``process``, with ms/frame by host clock (each setting twice, in
@@ -2992,6 +2997,86 @@ def shell_live_graph(card, params, camera) -> None:
           f"{float(pubs[-1][1]['valid'].mean()):.4f})", flush=True)
 
 
+def node_outputs(H: int, W: int) -> list:
+    """The graph node's eight outputs of an H x W frame on the card, in
+    its order and with its shapes and dtypes: the float32 rectified pair,
+    disparity, valid, depth, the cloud's xyz, valid and grey rgb."""
+    g = torch.Generator(device=DEVICE).manual_seed(H + W)
+
+    def f32(*shape):
+        return torch.rand(shape, generator=g, device=DEVICE) * 255
+
+    def mask(*shape):
+        return torch.rand(shape, generator=g, device=DEVICE) > 0.3
+    return [("left/image_rect", f32(H, W)), ("right/image_rect", f32(H, W)),
+            ("disparity", f32(H, W)), ("disparity", mask(H, W)),
+            ("depth", f32(H, W)), ("points2", f32(H * W, 3)),
+            ("points2", mask(H * W)), ("points2", f32(H * W, 3))]
+
+
+def shell_node_copies(card) -> None:
+    """The node's copy stage (``bridge/nodes.py:host_copies``) against
+    its bound, at the flagship's and SGBM's frames: a plain copy of the
+    frame's bytes from one device buffer into page-locked memory, by
+    events and back to back; the stage on ready tensors by host clock
+    (its enqueues and its one wait) and by events; ``to_numpy`` of the
+    same tensors, the route it replaced. The stage's arrays bit-equal to
+    ``.cpu()``; after its first call it allocates nothing."""
+    from i3dr_stereo_tpu_torch.bridge.nodes import host_copies
+    from i3dr_stereo_tpu_torch.bridge.pinned import PinnedPool, page_locked
+    from i3dr_stereo_tpu_torch.core.frame import to_numpy
+
+    for label, (H, W) in (("flagship", (H_FULL, W_FULL)),
+                          ("SGBM", (1080, 1920))):
+        outs = node_outputs(H, W)
+        nbytes = sum(x.numel() * x.element_size() for _, x in outs)
+        src = torch.empty(nbytes, dtype=torch.uint8, device=DEVICE)
+        dst = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+        plain = lambda: dst.copy_(src, non_blocking=True)
+        bound_ms = gpu_ms(plain)
+        bound_b2b_ms = back_to_back_ms(plain, iters=20)
+        fresh = []
+
+        def counting(shape, dtype):
+            fresh.append(shape)
+            return page_locked(shape, dtype)
+        pool = PinnedPool(counting)
+        arrays = host_copies(pool, outs)
+        check(all(np.array_equal(a, x.cpu().numpy())
+                  for a, (_, x) in zip(arrays, outs)),
+              f"node copies {label}: an array differs from .cpu()")
+        del arrays
+        fresh.clear()
+        stage_ms, pageable_ms = [], []
+        for _ in range(10):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            arrays = host_copies(pool, outs)
+            stage_ms.append((time.perf_counter() - t) * 1e3)
+            del arrays
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            arrays = [to_numpy(x) for _, x in outs]
+            pageable_ms.append((time.perf_counter() - t) * 1e3)
+            del arrays
+        check(not fresh, f"node copies {label}: the pool allocated {fresh} "
+              "after its first frame")
+        stage_ev = gpu_ms(lambda: host_copies(pool, outs))
+        stage, pageable = (statistics.median(stage_ms),
+                           statistics.median(pageable_ms))
+        print(f"shell node copies {label} [{card}]: {nbytes / 1e6:.6f} MB a "
+              f"frame in 8 arrays; plain pinned copy {bound_ms:.4f} ms by "
+              f"events, {bound_b2b_ms:.4f} back to back "
+              f"({nbytes / bound_b2b_ms / 1e6:.2f} GB/s); the node's copy "
+              f"stage {stage:.4f} ms by host clock (median of 10; "
+              f"{min(stage_ms):.4f}-{max(stage_ms):.4f}), {stage_ev:.4f} by "
+              f"events: {bound_b2b_ms / stage:.1%} of the bound; to_numpy "
+              f"of the same tensors {pageable:.4f} ms "
+              f"({min(pageable_ms):.4f}-{max(pageable_ms):.4f})", flush=True)
+        del outs, src, dst, pool
+        torch.cuda.empty_cache()
+
+
 def shell_rectify_graph(card, params, camera, pairs) -> None:
     """The node with ``rectify=True`` and a ``RectifyNode`` on raw uint8
     frames of the distorted rig: rectified images bit-equal to
@@ -3214,6 +3299,7 @@ def phase_shell(stats, card):
               Stamped(i / 5.0, np.roll(R, 97 * i, axis=1), i))
              for i in range(RUNNER_PAIRS)]
     shell_rectify_graph(card, params, camera, pairs[:2])
+    shell_node_copies(card)
     shell_runner(card, params, camera, pairs)
     shell_cli(card)
     torch.cuda.empty_cache()

@@ -20,7 +20,9 @@ OS processes:
 
 Torch port of ``i3dr_stereo_tpu.bridge.nodes``: the nodes that compute
 take ``device`` (the card unless the caller asks for the CPU; a missing
-card raises) and publish host numpy payloads, as the reference's do.
+card raises) and publish host numpy payloads, as the reference's do;
+:class:`GenerateDisparityNode` copies a card's outputs into reused
+page-locked buffers (:func:`host_copies`, ``bridge/pinned.py``).
 PyTorch runs eagerly, so where the reference wraps the depth and crop
 ops in ``jax.jit`` the port calls them directly, reading the depth
 bounds on every call.
@@ -35,6 +37,7 @@ import numpy as np
 import torch
 
 from i3dr_stereo_tpu_torch.bridge.graph import Graph, Node
+from i3dr_stereo_tpu_torch.bridge.pinned import PinnedPool
 from i3dr_stereo_tpu_torch.bridge.reconfigure import (
     CAMERA_SCHEMA,
     DISPARITY_SCHEMA,
@@ -61,12 +64,29 @@ from i3dr_stereo_tpu_torch.pipeline.stereo_pipeline import StereoPipeline
 from i3dr_stereo_tpu_torch.utils.metrics import GLOBAL_METRICS as METRICS
 
 
-def _host(topic: str, x) -> np.ndarray:
-    """``to_numpy`` of one output of ``topic``, spanned with its bytes."""
-    with METRICS.span("node.copy", topic=topic) as span:
-        a = to_numpy(x)
-        span.set(bytes=a.nbytes)
-    return a
+def host_copies(pool: PinnedPool, outputs: list) -> list:
+    """Host numpy arrays of ``outputs``, ``(topic, value)`` pairs, one
+    ``node.copy`` span each (``topic``, ``bytes``). A tensor on a CUDA
+    device is copied by DMA into a page-locked buffer of ``pool``,
+    enqueued without a wait, and its span also carries ``pinned`` and
+    ``fresh`` (the bytes the pool newly allocated); the last span waits
+    once for all of them (the outputs of one frame share a device), so
+    the spans cover the whole copy stage. Anything else goes through
+    ``to_numpy``."""
+    arrays, stream = [], None
+    for i, (topic, x) in enumerate(outputs):
+        with METRICS.span("node.copy", topic=topic) as span:
+            if isinstance(x, torch.Tensor) and x.is_cuda:
+                a, fresh = pool.copy(x)
+                stream = torch.cuda.current_stream(x.device)
+                span.set(pinned=1, fresh=fresh)
+            else:
+                a = to_numpy(x)
+            if i == len(outputs) - 1 and stream is not None:
+                stream.record_event().synchronize()
+            span.set(bytes=a.nbytes)
+        arrays.append(a)
+    return arrays
 
 
 class GenerateDisparityNode(Node):
@@ -89,6 +109,7 @@ class GenerateDisparityNode(Node):
                                        compute_crop=False)
         self._sync = ApproximateTimeSync(slop=slop)
         self._last = None  # cached state for save_stereo
+        self._pinned = PinnedPool()
         self.frames_processed = 0
         self.frames_dropped = 0
 
@@ -126,23 +147,30 @@ class GenerateDisparityNode(Node):
                 return
             self.frames_processed += 1
             self._last = (stamp, left, right, res)
-            self._publish("left/image_rect", stamp,
-                          _host("left/image_rect", res.rect_left))
-            self._publish("right/image_rect", stamp,
-                          _host("right/image_rect", res.rect_right))
+            outputs = [("left/image_rect", res.rect_left),
+                       ("right/image_rect", res.rect_right),
+                       ("disparity", res.disparity),
+                       ("disparity", res.valid)]
+            if res.depth is not None:
+                outputs.append(("depth", res.depth))
+            if res.points is not None:
+                outputs += [("points2", v) for v in res.points.values()]
+            host = iter(host_copies(self._pinned, outputs))
+            self._publish("left/image_rect", stamp, next(host))
+            self._publish("right/image_rect", stamp, next(host))
             self._publish("disparity", stamp, {
-                "disparity": _host("disparity", res.disparity),
-                "valid": _host("disparity", res.valid),
+                "disparity": next(host),
+                "valid": next(host),
                 "min_disparity": self.pipeline.config.min_disparity,
                 "disparity_range": self.pipeline.config.disparity_range,
                 "f": self.pipeline.rig.fx,
                 "T": self.pipeline.rig.baseline,
             })
             if res.depth is not None:
-                self._publish("depth", stamp, _host("depth", res.depth))
+                self._publish("depth", stamp, next(host))
             if res.points is not None:
-                self._publish("points2", stamp, {
-                    k: _host("points2", v) for k, v in res.points.items()})
+                self._publish("points2", stamp,
+                              {k: next(host) for k in res.points})
 
     def _publish(self, topic, stamp, data):
         with METRICS.span("node.publish", topic=topic):
