@@ -5,8 +5,18 @@
 
 Run from the repository root on a machine with a CUDA GPU, the CUDA
 toolkit (nvcc) and PyTorch built for CUDA. It imports nothing of JAX and
-nothing of the JAX package. In order, and failing (non-zero exit, no
-final result line) on the first thing that is wrong:
+nothing of the JAX package. Device time, busy time and host syncs are read
+with the benchmark's own code (``portbench/trace.py``), and every bound
+uses its peaks (``portbench/peaks.py``).
+
+A kernel's bit-equality checks on the card go in
+``tests/test_torch_<name>_card.py`` (marker ``card``, run with
+``python -m pytest --noconftest -m card tests/test_torch_<name>_card.py``);
+this script times and bounds the kernel for the kernel table in
+``PERF.md``. (The checks of the kernels before that rule still run here.)
+
+In order, and failing (non-zero exit, no final result line) on the first
+thing that is wrong:
 
 1. prints the card (nvidia-smi name and power limit) and the versions;
 2. builds every kernel of the port from ``i3dr_stereo_tpu_torch/csrc`` and
@@ -307,8 +317,13 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
+from portbench import trace
+from portbench.peaks import PEAK_BYTES_S, PEAK_OPS_S
+
 H_FULL, W_FULL = 2048, 2448
 DEVICE = "cuda"
+# host syncs are counted by the line of this package that issued them
+PACKAGE = Path(__file__).resolve().parent / "i3dr_stereo_tpu_torch"
 # the flagship input of bench.py:_layered_pair
 SCENE = dict(max_disp=200, background_disp=16, layers=6, seed=1)
 TOL_DISP = 1e-4          # kernel vs twin, per pixel valid in both
@@ -368,12 +383,9 @@ SGBM_KERNELS = ("remap", "bt_box_cost", "sgm_volume")
 LEAN_FLAGSHIP_KERNELS = ("census_transform", "fused_census_fwd",
                          "sgm_volume", "speckle_ccl", "remap")
 LEAN_SGBM_KERNELS = ("remap", "fused_bt_fwd", "sgm_volume")
-# the card's published peaks (H100 SXM): HBM bytes/s, float32 FLOP/s
-# outside the tensor cores (integer operations are counted at that rate)
-PEAK_BYTES_S = 3.35e12
-PEAK_OPS_S = 67e12
-# popcounts: 16 a clock an SM where the float32 rate counts 128 lanes x 2,
-# a sixteenth of it (4.19e12/s); phase_popc_rate measures what the card holds
+# integer operations count at portbench/peaks.py's float32 rate; popcounts
+# at 16 a clock an SM where that rate counts 128 lanes x 2, a sixteenth of
+# it (4.19e12/s); phase_popc_rate measures what the card holds
 PEAK_POPC_S = PEAK_OPS_S / 16
 
 # substrings of the port's CUDA kernel names, for the profile table
@@ -1439,27 +1451,6 @@ def phase_main_path(stats, card):
 # phase 6: where the frame's time goes
 # ---------------------------------------------------------------------------
 
-def device_spans(prof) -> list:
-    """(start us, end us, name) of every device activity the profiler
-    recorded, in start order; none fails the run."""
-    from torch.autograd import DeviceType
-
-    spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
-    check(len(spans) > 0, "the profiler recorded no device activity")
-    return spans
-
-
-def busy_ms(spans) -> float:
-    """The union of the device activity spans, in ms."""
-    busy = 0.0
-    end = float("-inf")
-    for s, e, _ in spans:
-        busy += max(0.0, e - max(s, end))
-        end = max(end, e)
-    return busy / 1e3
-
-
 def phase_profile(pipe, left, right, card, label="flagship",
                   frames: int = 5):
     """Device busy time and idle share over one window of ``frames``
@@ -1476,8 +1467,9 @@ def phase_profile(pipe, left, right, card, label="flagship",
             pipe.process(left, right)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    spans = device_spans(prof)
-    busy = busy_ms(spans)
+    spans = trace.read(prof, frames).device
+    check(len(spans) > 0, "the profiler recorded no device activity")
+    busy = trace.length(trace.union((s, e) for s, e, _ in spans)) / 1e3
     per_name: dict[str, list] = {}
     for s, e, name in spans:
         acc = per_name.setdefault(name, [0, 0.0])
@@ -1846,14 +1838,16 @@ def phase_bt_box(stats, card):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         twin(WIN_BOX)
         torch.cuda.synchronize()
-    spans = device_spans(prof)
+    spans = trace.read(prof, 1).device
+    check(len(spans) > 0, "the profiler recorded no device activity")
+    busy = trace.length(trace.union((s, e) for s, e, _ in spans)) / 1e3
     per_name: dict[str, list] = {}
     for s0, e0, name in spans:
         acc = per_name.setdefault(name, [0, 0.0])
         acc[0] += 1
         acc[1] += e0 - s0
     print(f"the twin's device activities at window {WIN_BOX}: {len(spans)}, "
-          f"busy {busy_ms(spans):.3f} ms", flush=True)
+          f"busy {busy:.3f} ms", flush=True)
     for name, (n, t) in sorted(per_name.items(),
                                key=lambda kv: -kv[1][1])[:8]:
         print(f"  {t / 1e3:8.3f} ms {n:4d}x  {name[:90]}", flush=True)
@@ -3132,44 +3126,6 @@ def shell_rectify_graph(card, params, camera, pairs) -> None:
           f"nodes' images {'bit-equal' if same else 'differ'}", flush=True)
 
 
-def sync_sites(fn) -> dict:
-    """Host syncs of one call of ``fn``, by the port's innermost source
-    line that issued each: PyTorch's sync debug mode warns at every call
-    that makes the host wait for the device."""
-    import traceback
-    import warnings
-
-    import i3dr_stereo_tpu_torch
-
-    pkg = Path(i3dr_stereo_tpu_torch.__file__).resolve().parent
-    sites: dict[str, int] = {}
-
-    def note(message, *args, **kw):
-        stack = traceback.extract_stack()[:-1]
-        outer = [fr for fr in stack if not fr.filename.endswith("warnings.py")]
-        where = (f"outside the port ({Path(outer[-1].filename).name}:"
-                 f"{outer[-1].lineno} {outer[-1].name})" if outer
-                 else "outside the port")
-        for fr in reversed(stack):
-            path = Path(fr.filename).resolve()
-            if pkg in path.parents:
-                where = (f"{path.relative_to(pkg.parent)}:{fr.lineno} "
-                         f"({fr.name})")
-                break
-        sites[where] = sites.get(where, 0) + 1
-
-    torch.cuda.synchronize()
-    with warnings.catch_warnings():
-        warnings.simplefilter("always")
-        warnings.showwarning = note
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            fn()
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-    return sites
-
-
 def shell_runner(card, params, camera, pairs) -> None:
     """``StreamRunner`` over the flagship pairs: bit-equal to per-pair
     ``process`` at every setting; ms/frame, idle share and peak reported."""
@@ -3222,7 +3178,9 @@ def shell_runner(card, params, camera, pairs) -> None:
             StreamRunner(pipe, batch_size=bs).run(
                 pairs, lambda *a: None, depth=depth)
             wall = (time.perf_counter() - t0) * 1e3
-        busy = busy_ms(device_spans(prof))
+        spans = trace.read(prof, len(pairs)).device
+        check(len(spans) > 0, "the profiler recorded no device activity")
+        busy = trace.length(trace.union((s, e) for s, e, _ in spans)) / 1e3
         r = runs[(bs, depth)]
         ms[(bs, depth)] = statistics.median(r)
         print(f"shell runner batch {bs} depth {depth} [{card}]: "
@@ -3240,8 +3198,8 @@ def shell_runner(card, params, camera, pairs) -> None:
           f"{ms[(1, 0)]:.3f} -> {ms[(1, 2)]:.3f} ms/frame ({gain:+.3f} ms, "
           f"{gain / ms[(1, 0)]:+.1%} of depth 0); batch 2 depth 2 "
           f"{ms[(2, 2)]:.3f}", flush=True)
-    sites = sync_sites(lambda: StreamRunner(pipe).run(
-        [pairs[0]], lambda *a: None, depth=0))
+    sites = trace.sync_sites(lambda: StreamRunner(pipe).run(
+        [pairs[0]], lambda *a: None, depth=0), PACKAGE)
     drain = statistics.median(b for _, b in split[(1, 0)])
     print(f"shell runner: what depth 2 can hide is depth 0's wait in its "
           f"drain, {drain:.3f} ms a frame: the host is inside process for "
@@ -3657,8 +3615,8 @@ def map_moving_rig(stats, card, depths, poses) -> None:
     check(iou > MIN_MAP_IOU, f"moving rig: map IoU {iou} <= {MIN_MAP_IOU}")
     iou_fine = occupancy_iou(fuse(poses, FINE_VOLUME).occupancy_grid(),
                              vol.occupancy_grid())
-    sites = sync_sites(lambda: odo.track(depths[3]))
-    empty = sync_sites(lambda: None)
+    sites = trace.sync_sites(lambda: odo.track(depths[3]), PACKAGE)
+    empty = trace.sync_sites(lambda: None, PACKAGE)
     # the same call in its parts
     from i3dr_stereo_tpu_torch.mapping import odometry as odom
     from i3dr_stereo_tpu_torch.mapping.tsdf import to_device
@@ -3671,7 +3629,7 @@ def map_moving_rig(stats, card, depths, poses) -> None:
             odo._prev, box["m"], MAP_K, torch.eye(4, device=DEVICE))),
         "readout": lambda: odom._readout(box["s"]),
     }
-    by_part = {k: sync_sites(f) for k, f in parts.items()}
+    by_part = {k: trace.sync_sites(f, PACKAGE) for k, f in parts.items()}
     print(f"moving rig [{card}]: ATE max {max(ate):.5f} m (final "
           f"{ate[-1]:.5f}), rotation error max {max(rot):.4f} deg, last ICP "
           f"rmse {odo.last_diag['rmse']:.5f} m, inlier share "

@@ -205,7 +205,7 @@ def stream_of(t: torch.Tensor) -> int:
     """The raw handle of the current stream of ``t``'s device: 0.2 us a
     call on the host of an NVIDIA H100 machine, where building a
     ``torch.cuda.Stream`` to read it takes 5-6 us
-    (``kernel_probes/probe6.py``)."""
+    (``kernel_probes/probe6.py`` at commit 1dd326f)."""
     return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 

@@ -35,16 +35,16 @@
 // waited for the one before it. A block is 8 x 16 pixels, so a warp is
 // 8 x 4 of them: its holes lie close together and walk trees of a like
 // shape over the same lines of L1.
-//   kernel_probes/probe8.py times it and the forms below at level 0 of
-// the flagship frame (PERF.md has the figures): the walk a leaf at a time
-// in 32 x 8 blocks (the form before), leaves gathered 1 to 4 levels at
-// once, blocks of 32 x 8 to 8 x 32. Slower than the form before: the
-// holes of a tile listed in shared memory, a thread a hole
-// (src/gauss_rays_lane.cu) or a warp a hole and a lane a direction
+//   kernel_probes/probe8.py at commit 1dd326f timed it and the forms below
+// (in its src/) at level 0 of the flagship frame (PERF.md has the figures):
+// the walk a leaf at a time in 32 x 8 blocks (the form before), leaves
+// gathered 1 to 4 levels at once, blocks of 32 x 8 to 8 x 32. Slower than
+// the form before: the holes of a tile listed in shared memory, a thread a
+// hole (src/gauss_rays_lane.cu) or a warp a hole and a lane a direction
 // (src/gauss_rays_warp.cu): a warp then waits on its slowest of 32 trees;
-// and the reference's rounds on a 32 x 32 tile in shared memory with a
-// byte of state a pixel (src/gauss_rays_rounds.cu): ~400 byte updates a
-// pixel, and nearly every tile has holes.
+// and the reference's rounds on a 32 x 32 tile in shared memory with a byte
+// of state a pixel (src/gauss_rays_rounds.cu): ~400 byte updates a pixel,
+// and nearly every tile has holes.
 //   Every float op is the twin's, in its order, with __fadd_rn /
 // __fmul_rn / __fdiv_rn so that nothing is contracted into an FMA, and
 // expf as torch's exp on the card computes it. The per-round alternative

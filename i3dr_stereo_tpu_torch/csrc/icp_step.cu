@@ -72,7 +72,7 @@ constexpr int MAX_BLOCKS = 2048;
 constexpr int MAX_LEVELS = 8;
 // pixels a thread keeps in flight, and blocks an SM holds (<= 128
 // registers): the fastest pair on an H100 of 1, 2, 4, 8 and 1-4 blocks
-// (kernel_probes/probe10.py)
+// (kernel_probes/probe10.py at commit 1dd326f)
 constexpr int PIX = 4;
 constexpr int MIN_BLOCKS = 2;
 constexpr long long MAX_PIXELS = 1LL << 30;

@@ -28,14 +28,14 @@
 // width is not a multiple of 4 (or idx / out pointers that are not
 // 16-byte aligned) and the last, partial anchor block of a row go pixel
 // by pixel.
-// Measured at level 0 through the C entry, in turns, 50 calls back to
-// back between two events (kernel_probes/probe3.py): 0.0234-0.0236 ms a
-// call (80 % of the byte bound) against 0.0367 for the kernel before it,
-// 0.0247-0.0248 for the staged variant and 0.0391-0.0392 for torch.gather
-// on a ready index. By events around one call: the C entry 0.032, the
-// wrapper (block_gather.py) 0.056, torch.gather 0.049-0.050. The
-// wrapper's host work (0.032-0.034 ms a call issued back to back)
-// outlasts the kernel (NVIDIA H100 80GB HBM3, 700 W).
+// Measured at level 0 through the C entry, in turns, 50 calls back to back
+// between two events (kernel_probes/probe3.py at commit 1dd326f):
+// 0.0234-0.0236 ms a call (80 % of the byte bound) against 0.0367 for the
+// kernel before it, 0.0247-0.0248 for the staged variant and 0.0391-0.0392
+// for torch.gather on a ready index. By events around one call: the C entry
+// 0.032, the wrapper (block_gather.py) 0.056, torch.gather 0.049-0.050. The
+// wrapper's host work (0.032-0.034 ms a call issued back to back) outlasts
+// the kernel (NVIDIA H100 80GB HBM3, 700 W).
 #include "common.cuh"
 
 namespace {

@@ -58,13 +58,13 @@
 // different banks. The elimination writes P, c and Q over the inputs,
 // the back substitution u over P, and u leaves as it came in. LB (8, 4,
 // 2 or 1) is the one that keeps the most lines on an SM at once.
-//   kernel_probes/probe8.py times it and the forms below on both passes
-// of the WLS fill's first round at 2448x2048, and reads clock64 at each
-// barrier for its phases (PERF.md has the figures). Slower or no better:
-// the elimination from both ends with c and Q in a global scratch buffer
-// and each thread's loads 8 steps ahead in registers
-// (src/wls_lines_twosided.cu: 175 registers); three divisions a step in
-// place of the reciprocal; 64 segments a line (another rounding).
+//   kernel_probes/probe8.py at commit 1dd326f timed it and the forms below
+// (in its src/) on both passes of the WLS fill's first round at 2448x2048,
+// and read clock64 at each barrier for its phases (PERF.md has the
+// figures). Slower or no better: the elimination from both ends with c and
+// Q in a global scratch buffer and each thread's loads 8 steps ahead in
+// registers (src/wls_lines_twosided.cu: 175 registers); three divisions a
+// step in place of the reciprocal; 64 segments a line (another rounding).
 //   What bounds it on the card: a, w, d read and u written once, 16 bytes
 // an element (0.080 GB a pass at 2448x2048, 0.024 ms at 3.35 TB/s).
 #include <cuda_pipeline.h>

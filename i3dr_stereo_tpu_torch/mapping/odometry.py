@@ -176,7 +176,7 @@ def pack_maps(depth: torch.Tensor, K, levels: int) -> List[tuple]:
         nrm = torch.cat([N, (ok & valid)[..., None].to(N.dtype)], -1)
         # one copy of 16-byte halves: a 3-way concatenation of the narrow
         # fields costs the card 2.8x as much at 2448x2048
-        # (kernel_probes/probe10.py)
+        # (kernel_probes/probe10.py at commit 1dd326f)
         maps.append((cur, torch.stack([cur, nrm], -2).reshape(
             *cur.shape[:2], 8)))
     return maps
