@@ -75,7 +75,9 @@ thing that is wrong:
    rig the outputs must be finite; the same matcher through the plain
    twins on the card must agree at 256x320;
 5. times the full path (CUDA events, median of 10 frames after warm-up),
-   the matcher alone and through the twins (once), and the path without
+   the matcher alone and through the twins (once), the matcher run
+   eagerly and replayed as a CUDA graph in turns (host ms and device ms;
+   the replay bit-equal to the eager match), and the path without
    rectification and speckle (rectified float inputs), each with the
    card's name and power limit;
 6. profiles five back-to-back frames of the full path: device busy
@@ -1434,6 +1436,7 @@ def phase_main_path(stats, card):
           f"({1000 / frame_ms:.2f} FPS), matcher kernels {match_ms:.3f} ms, "
           f"matcher plain twins {plain_match_ms:.1f} ms at "
           f"{W_FULL}x{H_FULL}", flush=True)
+    match_eager_replayed(rl, rr, cfg, card)
     # for comparison: rectified float inputs, speckle off
     pipe_r = StereoPipeline(rig, cfg.replace(speckle_size=0), cloud,
                             device=DEVICE, compute_crop=True,
@@ -1445,6 +1448,45 @@ def phase_main_path(stats, card):
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
           f" GiB", flush=True)
     return pipe, left, right
+
+
+def match_eager_replayed(rl, rr, cfg, card, iters: int = 10) -> None:
+    """The flagship match run eagerly and replayed as a CUDA graph, in
+    turns (eager, replay, replay, eager; ``iters`` calls a turn): host ms,
+    the call on the host clock (no sync inside it), and device ms, CUDA
+    events around the call (the stream from the call's start to its last
+    operation's end). The replayed result must be bit-equal to the eager
+    one."""
+    from i3dr_stereo_tpu_torch.matchers import pyramid as pyr
+
+    profile = pyr.profile_from_config(cfg)
+    runs = {"eager": lambda: pyr._match(rl, rr, cfg=cfg, profile=profile,
+                                        lean=False, plain=False),
+            "replay": lambda: pyr.pyramid_sgm_match(rl, rr, cfg)}
+    for _ in range(3):          # eager, captured, then a replay
+        got = runs["replay"]()
+    want = runs["eager"]()
+    check(torch.equal(got.disparity, want.disparity)
+          and torch.equal(got.valid, want.valid),
+          "the replayed match differs from the eager one")
+    turns = ("eager", "replay", "replay", "eager")
+    for i, turn in enumerate(turns):
+        host, dev = [], []
+        for _ in range(iters):
+            torch.cuda.synchronize()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            t0 = time.perf_counter()
+            runs[turn]()
+            host.append((time.perf_counter() - t0) * 1e3)
+            b.record()
+            torch.cuda.synchronize()
+            dev.append(a.elapsed_time(b))
+        print(f"match turn {i + 1} {turn} [{card}]: host "
+              f"{statistics.median(host):.3f} ms, device "
+              f"{statistics.median(dev):.3f} ms (medians of {iters})",
+              flush=True)
 
 
 # ---------------------------------------------------------------------------

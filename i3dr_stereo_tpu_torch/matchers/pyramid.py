@@ -44,15 +44,28 @@ both; ``fused_census_sgm`` (kernel ``fused_census_fwd``, then
 ``sgm_volume`` over the uint8 volume, folded into its int16 plane); plain WTA
 on the int32 sums; and backmatching by a forward splat of the absolute
 map (:func:`_roundtrip_check`).
+
+On a CUDA tensor the whole match, levels and hole fill included, runs as
+one CUDA graph once its key has been seen (:class:`PyramidGraphs`,
+:func:`graph_key`): a key's first call runs eagerly, its second is
+captured and replayed, and every later call copies its two images into
+the graph's inputs and replays it, so the host issues none of the
+pyramid's ~3,300 launches a frame. A CPU tensor, or ``plain=True``, runs
+eagerly on every call.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+import functools
+import threading
 from typing import Optional
 
+import numpy as np
 import torch
 
+from i3dr_stereo_tpu_torch import _build
 from i3dr_stereo_tpu_torch.config.params import MatcherConfig
 from i3dr_stereo_tpu_torch.config.profile import PyramidLevelConfig, SGMProfile
 from i3dr_stereo_tpu_torch.matchers.base import MatchResult
@@ -140,10 +153,134 @@ def pyramid_sgm_match(left, right, cfg: MatcherConfig,
     the default is the flagship branch. ``plain=True`` runs the kernels'
     plain torch twins on whatever device the images are on (the
     reference run on the card); by default a CPU tensor takes the twins
-    and a CUDA tensor the kernels."""
+    and a CUDA tensor the kernels, captured as a CUDA graph at the key's
+    second call and replayed from then on (:data:`GRAPHS`). The span
+    ``pyramid.match`` says which of ``eager``, ``capture`` and
+    ``replay`` the call was."""
     if profile is None:
         profile = profile_from_config(cfg)
     left, right = torch.as_tensor(left), torch.as_tensor(right)
+    match = functools.partial(_match, cfg=cfg, profile=profile, lean=lean,
+                              plain=plain)
+    key = graph_key(left, right, cfg, profile, lean=lean, plain=plain)
+    if key is None:
+        with METRICS.span("pyramid.match", graph="eager"):
+            return match(left, right)
+    return GRAPHS.run(key, left, right, match)
+
+
+def graph_key(left: torch.Tensor, right: torch.Tensor, cfg: MatcherConfig,
+              profile: SGMProfile, *, lean: bool, plain: bool):
+    """Everything the host reads to decide what a match launches and with
+    which scalars: the device, both images' shapes and dtypes, the config
+    (P1/P2, backmatch distance and speckle values reach the kernels by
+    value), the profile and ``lean``. None where the call runs eagerly
+    every time: ``plain``, or images that are not both on one CUDA
+    device."""
+    if plain or left.device.type != "cuda" or right.device != left.device:
+        return None
+    return (left.device, tuple(left.shape), left.dtype, tuple(right.shape),
+            right.dtype, cfg, profile, bool(lean))
+
+
+@dataclasses.dataclass(eq=False)
+class _Captured:
+    """One captured match: the graph, the static images it reads, the
+    static result it writes and the kernel launches a replay makes."""
+
+    graph: "torch.cuda.CUDAGraph"
+    inputs: tuple
+    result: MatchResult
+    launches: dict
+
+
+def _capture(match, left: torch.Tensor, right: torch.Tensor) -> _Captured:
+    """Capture ``match`` of copies of the two images into a graph with a
+    memory pool of its own. The kernels launched meanwhile stay counted in
+    ``_build.LAUNCHES`` once, for the frame the capture serves."""
+    inputs = (left.clone(), right.clone())
+    before = dict(_build.LAUNCHES)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.device(left.device), \
+            torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        result = match(*inputs)
+    launches = {k: n - before[k] for k, n in _build.LAUNCHES.items()
+                if n != before[k]}
+    return _Captured(graph, inputs, result, launches)
+
+
+GRAPH_KEYS = 4   # the keys a PyramidGraphs holds, captured or not
+
+
+class PyramidGraphs:
+    """The matches captured as CUDA graphs, :data:`GRAPH_KEYS` keys at
+    most (:func:`graph_key`), the least recently used dropped first with
+    its graph's memory pool.
+
+    A key's first call runs eagerly: lazily loaded modules load, the
+    device tables the ops cache are built and the allocator fills, all
+    outside any capture. Its second call is captured and replayed; every
+    later call copies the two images into the graph's inputs (two copies
+    on the device) and replays. Each call returns clones of the graph's
+    outputs, so a result held across the next replay keeps its values,
+    and adds the captured launches to ``_build.LAUNCHES``, so a replayed
+    frame counts what an eager one does. A changed config is a new key:
+    one eager frame, one captured, then replays."""
+
+    def __init__(self):
+        self._held = collections.OrderedDict()  # key -> _Captured or None
+        self._lock = threading.Lock()
+
+    def keys(self) -> list:
+        """The keys held, least recently used first."""
+        return list(self._held)
+
+    def stage(self, key) -> str:
+        """``eager``, ``capture`` or ``replay``: what the call of ``key``
+        does. The key becomes the most recently used; keys beyond
+        :data:`GRAPH_KEYS` go, least recently used first."""
+        if key in self._held:
+            self._held.move_to_end(key)
+            stage = "capture" if self._held[key] is None else "replay"
+        else:
+            self._held[key] = None
+            stage = "eager"
+        while len(self._held) > GRAPH_KEYS:
+            _, old = self._held.popitem(last=False)
+            if old is not None:
+                old.graph.reset()
+        return stage
+
+    def run(self, key, left: torch.Tensor, right: torch.Tensor,
+            match) -> MatchResult:
+        """``match(left, right)`` for ``key``: eagerly, captured, or
+        replayed (class docstring)."""
+        with self._lock:
+            stage = self.stage(key)
+            with METRICS.span("pyramid.match", graph=stage):
+                if stage == "eager":
+                    return match(left, right)
+                if stage == "capture":
+                    cap = self._held[key] = _capture(match, left, right)
+                else:
+                    cap = self._held[key]
+                    cap.inputs[0].copy_(left)
+                    cap.inputs[1].copy_(right)
+                    for k, n in cap.launches.items():
+                        _build.LAUNCHES[k] += n
+                cap.graph.replay()
+                valid = cap.result.valid
+                return MatchResult(
+                    disparity=cap.result.disparity.clone(),
+                    valid=None if valid is None else valid.clone())
+
+
+GRAPHS = PyramidGraphs()
+
+
+def _match(left: torch.Tensor, right: torch.Tensor, *, cfg: MatcherConfig,
+           profile: SGMProfile, lean: bool, plain: bool) -> MatchResult:
+    """The match itself, eagerly: what a capture records."""
     batched = left.ndim == 3
     l = (left if batched else left[None]).to(torch.float32)
     r = (right if batched else right[None]).to(torch.float32)
@@ -265,6 +402,13 @@ def _fill_gaps(p: PyramidLevelConfig, disp, valid, ll, *, plain: bool):
     return wls_fill(disp, valid, ll, plain=plain)
 
 
+def _float32(v) -> float:
+    """``v`` rounded to float32, as a Python float: a float32 tensor
+    compares with it in float32, as with a float32 tensor of ``v``, and
+    nothing is copied to the device."""
+    return float(np.float32(v))
+
+
 def _ceil_to(v: int, m: int) -> int:
     return (v + m - 1) // m * m
 
@@ -337,9 +481,7 @@ def _backmatch_check_true(valid, bm, max_diff, K: int, *,
     xs = torch.arange(Wh, dtype=torch.int32, device=r_res.device)
     xw = xs - rr_int[:, :Hh, :Wh]
     in_w = (xw >= 0) & (xw < Wh)
-    max_diff = torch.as_tensor(max_diff, dtype=torch.float32,
-                               device=r_res.device)
-    consistent = (d_at - r_res[:, :Hh, :Wh]).abs() <= max_diff
+    consistent = (d_at - r_res[:, :Hh, :Wh]).abs() <= _float32(max_diff)
     return valid & in_w & consistent
 
 
@@ -390,7 +532,5 @@ def _roundtrip_check(disp: torch.Tensor, valid: torch.Tensor, max_diff):
     src = torch.where(valid & in_img, disp, -1.0e9)
     d_right = torch.full_like(disp, -1.0e9).scatter_reduce_(
         2, xr_c, src, "amax", include_self=True)
-    max_diff = torch.as_tensor(max_diff, dtype=torch.float32,
-                               device=disp.device)
-    consistent = (d_right.gather(2, xr_c) - disp).abs() <= max_diff
+    consistent = (d_right.gather(2, xr_c) - disp).abs() <= _float32(max_diff)
     return valid & in_img & consistent

@@ -4,12 +4,14 @@ cloud, crop (torch port of ``i3dr_stereo_tpu.pipeline.stereo_pipeline``).
 The rectification maps depend only on the calibration, so they are built
 once per rig (:meth:`StereoPipeline.set_rig` rebuilds them) on the
 pipeline's device, and every frame is one ``remap`` launch for both images.
-PyTorch runs eagerly, so the reference's jit cache and device-cached
-scalars have no counterpart: every call runs the current config, and its
-numeric fields (P1/P2, uniqueness, backmatch distance, speckle range)
-plus the depth bounds reach the kernels as runtime scalars — changing
-them through :meth:`StereoPipeline.update_config` or ``update_cloud``
-rebuilds nothing. The pipeline runs on the card (``device="cuda"``, the
+Every call runs the current config: its numeric fields (P1/P2,
+uniqueness, backmatch distance, speckle range) reach the kernels as
+scalars, and the depth bounds as runtime scalars. On the card the pyramid
+matcher replays a CUDA graph captured for the config
+(``matchers/pyramid.py:PyramidGraphs``), so a change through
+:meth:`StereoPipeline.update_config` costs one eager frame and one
+captured frame, then replays; ``update_cloud`` rebuilds nothing. The
+pipeline runs on the card (``device="cuda"``, the
 default) and launches the kernels there, or raises where there is none:
 it never falls back. ``device="cpu"`` runs the plain torch twins of the
 kernels. ``lean=True`` passes the matchers' ``lean`` argument on (the

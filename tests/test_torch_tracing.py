@@ -115,10 +115,14 @@ def test_a_frame_gives_the_tree_of_node_pipeline_and_pyramid(graph):
     sc = layered_scene(H, W, max_disp=12, seed=9)
     assert upload.attrs["bytes"] == sc.left.nbytes + sc.right.nbytes
     (match,) = named("pipeline.match")
+    # the pyramid's own span: eager on the CPU, its levels inside it
+    (pyramid,) = named("pyramid.match")
+    assert pyramid.parent == match.id
+    assert pyramid.attrs == {"graph": "eager"}
     levels = named("pyramid.level")
     passes = profile_from_config(CFG).enabled_levels
     assert len(levels) == len(passes) >= 2
-    assert all(s.parent == match.id for s in levels)
+    assert all(s.parent == pyramid.id for s in levels)
     assert sorted(s.attrs["level"] for s in levels) == \
         sorted(p.level for p in passes)
 
