@@ -54,10 +54,28 @@ the four messages in place. The span ``bp.data_cost`` (``D``, ``H``,
 ``H``, ``W``, ``iters``, ``bytes``: the level's message volume) a level's
 upsampling and iterations, ``bp.belief`` the belief and WTA; each counts
 ``held_bytes`` on a CUDA device (``torch.cuda.memory_allocated`` at its
-end). They record only while the tracer does (``utils/metrics.py``).
+end). CSBP holds the image pyramid, the coarsest level's dense volumes
+and then K planes a pixel; its spans are ``csbp.coarse``,
+``csbp.select``, ``csbp.level`` and ``csbp.belief``
+(:func:`_constant_space_match`), each with ``held_bytes`` too. They
+record only while the tracer does (``utils/metrics.py``).
+
+CUDA graphs. On a CUDA tensor CSBP, the speckle filter included, runs as
+one CUDA graph once its key has been seen (:data:`CSBP_GRAPHS`, the
+pyramid's :class:`~i3dr_stereo_tpu_torch.matchers.pyramid.PyramidGraphs`
+under the span ``csbp.match``): a key's first call runs eagerly, its
+second is captured and replayed, and every later call copies its two
+images into the graph's inputs and replays it, so the host makes none
+of its ~170 launches a frame. The stage spans above then record only in
+the eager and the captured call; ``csbp.match`` records in every call,
+its ``held_bytes`` counting the free bytes of the graph's pool too. A
+CPU tensor, or ``plain=True``, runs eagerly on every call. Dense BP runs
+eagerly: its frame is a few hundred ms of kernels.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -65,7 +83,9 @@ import torch
 from i3dr_stereo_tpu_torch import _build
 from i3dr_stereo_tpu_torch.config.params import MatcherConfig
 from i3dr_stereo_tpu_torch.matchers.base import MatchResult
-from i3dr_stereo_tpu_torch.matchers.pyramid import _downsample2
+from i3dr_stereo_tpu_torch.matchers.pyramid import (PyramidGraphs,
+                                                    _downsample2,
+                                                    graph_key)
 from i3dr_stereo_tpu_torch.ops.shift import gather_disparity_shifted
 from i3dr_stereo_tpu_torch.ops.speckle import speckle_filter
 from i3dr_stereo_tpu_torch.ops.wta import wta_disparity
@@ -354,58 +374,78 @@ def _batched(left, right):
 
 def _constant_space_match(l, r, cfg: MatcherConfig, plain: bool):
     """CSBP: dense BP at the coarsest level, then the best K candidate
-    planes per pixel refined down the image pyramid. Returns the argmin
-    plane's disparity and validity, (B, H, W)."""
+    planes per pixel refined down the image pyramid, each under a span of
+    its own: ``csbp.coarse`` (``D``, ``H``, ``W``, ``iters``: the image
+    pyramid, the coarsest level's data cost and its dense BP),
+    ``csbp.select`` (``K``: the coarse belief, the sort and the gathers),
+    ``csbp.level`` (``level``, ``H``, ``W``, ``K``, ``iters``, ``bytes``:
+    the level's message volume; the upsampling, the plane costs and the
+    plane updates) and ``csbp.belief`` (the final belief and argmin).
+    Returns the argmin plane's disparity and validity, (B, H, W)."""
     D = cfg.disparity_range
     levels = max(1, min(cfg.bp_levels, 4))
     iters = max(1, cfg.bp_iters)
     K = max(2, min(cfg.csbp_planes, D))
 
-    pyr = [(l, r)]
-    for _ in range(levels - 1):
-        if min(pyr[-1][0].shape[1], pyr[-1][0].shape[2]) < 16:
-            break
-        pyr.append((_downsample2(pyr[-1][0]), _downsample2(pyr[-1][1])))
-    if len(pyr) < 2:
-        # the reference adds the coarsest level's dense costs to the K
-        # planes' messages here and fails too
-        raise ValueError(
-            f"CSBP needs at least two pyramid levels: bp_levels="
-            f"{cfg.bp_levels} on a {tuple(l.shape[1:])} image gives one "
-            f"(a level halves an image of at least 16 px a side)")
+    with METRICS.span("csbp.coarse") as span:
+        pyr = [(l, r)]
+        for _ in range(levels - 1):
+            if min(pyr[-1][0].shape[1], pyr[-1][0].shape[2]) < 16:
+                break
+            pyr.append((_downsample2(pyr[-1][0]), _downsample2(pyr[-1][1])))
+        if len(pyr) < 2:
+            # the reference adds the coarsest level's dense costs to the K
+            # planes' messages here and fails too
+            raise ValueError(
+                f"CSBP needs at least two pyramid levels: bp_levels="
+                f"{cfg.bp_levels} on a {tuple(l.shape[1:])} image gives one "
+                f"(a level halves an image of at least 16 px a side)")
 
-    # the coarsest level: the full (scaled) disparity axis from 0, dense BP
-    lc, rc = pyr[-1]
-    Dc = max(K, D // 2 ** (len(pyr) - 1))
-    data = data_cost(lc, rc, 0, Dc)
-    msgs = bp_iterate(data, data.new_zeros((4,) + data.shape), iters,
-                      DISC_SINGLE_JUMP, MAX_DISC_TERM, plain=plain)
-    belief = data + sum(_incoming(msgs))
-    # the K best planes, the lower index first among equal beliefs (as
-    # XLA's top_k orders them; torch.topk promises no order)
-    idx = torch.sort(belief, dim=1, stable=True).indices[:, :K]
-    dvals = idx.to(torch.float32)
-    msgs = torch.stack([msgs[i].gather(1, idx) for i in range(4)])
+        # the coarsest level: the full (scaled) disparity axis from 0,
+        # dense BP
+        lc, rc = pyr[-1]
+        Dc = max(K, D // 2 ** (len(pyr) - 1))
+        span.set(D=Dc, H=lc.shape[-2], W=lc.shape[-1], iters=iters)
+        data = data_cost(lc, rc, 0, Dc)
+        msgs = bp_iterate(data, data.new_zeros((4,) + data.shape), iters,
+                          DISC_SINGLE_JUMP, MAX_DISC_TERM, plain=plain)
+        _held(span, l.device)
 
-    for lf, rf in pyr[-2::-1]:
+    with METRICS.span("csbp.select", K=K) as span:
+        belief = data + sum(_incoming(msgs))
+        # the K best planes, the lower index first among equal beliefs (as
+        # XLA's top_k orders them; torch.topk promises no order)
+        idx = torch.sort(belief, dim=1, stable=True).indices[:, :K]
+        dvals = idx.to(torch.float32)
+        msgs = torch.stack([msgs[i].gather(1, idx) for i in range(4)])
+        _held(span, l.device)
+
+    for level in range(len(pyr) - 2, -1, -1):
+        lf, rf = pyr[level]
         B, Hh, Wh = lf.shape
-        dvals = 2.0 * _up2(dvals, Hh, Wh)
-        msgs = _up2(msgs, Hh, Wh)
-        xs = torch.arange(Wh, dtype=torch.int32, device=lf.device)
-        src = xs - torch.round(dvals).to(torch.int32)
-        ok = (src >= 0) & (src < Wh)
-        Rg = rf[:, None].expand(B, K, Hh, Wh).gather(
-            3, src.clamp(0, Wh - 1).long())
-        data = DATA_WEIGHT * (lf[:, None] - Rg).abs().clamp(
-            max=MAX_DATA_TERM)
-        data = torch.where(ok, data, DATA_WEIGHT * MAX_DATA_TERM)
-        msgs = bp_iterate_planes(data, dvals, msgs.contiguous(), iters,
-                                 DISC_SINGLE_JUMP, MAX_DISC_TERM,
-                                 plain=plain)
+        with METRICS.span("csbp.level", level=level, H=Hh, W=Wh, K=K,
+                          iters=iters, bytes=4 * 4 * B * K * Hh * Wh) as span:
+            dvals = 2.0 * _up2(dvals, Hh, Wh)
+            msgs = _up2(msgs, Hh, Wh)
+            xs = torch.arange(Wh, dtype=torch.int32, device=lf.device)
+            src = xs - torch.round(dvals).to(torch.int32)
+            ok = (src >= 0) & (src < Wh)
+            Rg = rf[:, None].expand(B, K, Hh, Wh).gather(
+                3, src.clamp(0, Wh - 1).long())
+            data = DATA_WEIGHT * (lf[:, None] - Rg).abs().clamp(
+                max=MAX_DATA_TERM)
+            data = torch.where(ok, data, DATA_WEIGHT * MAX_DATA_TERM)
+            msgs = bp_iterate_planes(data, dvals, msgs.contiguous(), iters,
+                                     DISC_SINGLE_JUMP, MAX_DISC_TERM,
+                                     plain=plain)
+            _held(span, l.device)
 
-    belief = data + sum(_incoming(msgs))
-    kbest = belief.argmin(1, keepdim=True)
-    return dvals.gather(1, kbest)[:, 0], ok.gather(1, kbest)[:, 0]
+    with METRICS.span("csbp.belief") as span:
+        belief = data + sum(_incoming(msgs))
+        kbest = belief.argmin(1, keepdim=True)
+        disp, valid = dvals.gather(1, kbest)[:, 0], ok.gather(1, kbest)[:, 0]
+        _held(span, l.device)
+    return disp, valid
 
 
 def _held(span, device: torch.device) -> None:
@@ -478,16 +518,37 @@ def belief_propagation_match(left, right, cfg: MatcherConfig, *,
                              plain: bool = False) -> MatchResult:
     """BP (``constant_space=False``) or CSBP on (H, W) or (B, H, W)
     images. ``plain=True`` runs the kernels' plain torch twins (and the
-    speckle filter's) on whatever device the images are on."""
+    speckle filter's) on whatever device the images are on. CSBP on CUDA
+    tensors replays a CUDA graph from its key's second call
+    (:data:`CSBP_GRAPHS`); the span ``csbp.match`` says which of
+    ``eager``, ``capture`` and ``replay`` the call was."""
     l, r, batched = _batched(left, right)
     if constant_space:
-        disp, ok = _constant_space_match(l, r, cfg, plain)
-        if cfg.speckle_size > 0:
-            ok = speckle_filter(disp, ok, max_size=cfg.speckle_size,
-                                max_diff=max(cfg.speckle_range, 1.0),
-                                plain=plain)
+        match = functools.partial(_csbp_filtered, cfg=cfg, plain=plain)
+        key = graph_key(l, r, cfg, None, lean=False, plain=plain)
+        if key is None:
+            with METRICS.span("csbp.match", graph="eager"):
+                res = match(l, r)
+        else:
+            res = CSBP_GRAPHS.run(key, l, r, match)
+        disp, ok = res.disparity, res.valid
     else:
         disp, ok = _dense_match(l, r, cfg, plain)
     if not batched:
         disp, ok = disp[0], ok[0]
+    return MatchResult(disparity=disp, valid=ok)
+
+
+CSBP_GRAPHS = PyramidGraphs(span="csbp.match")
+
+
+def _csbp_filtered(l: torch.Tensor, r: torch.Tensor, *, cfg: MatcherConfig,
+                   plain: bool) -> MatchResult:
+    """CSBP on (B, H, W) float32 images, then the speckle filter: what a
+    capture records."""
+    disp, ok = _constant_space_match(l, r, cfg, plain)
+    if cfg.speckle_size > 0:
+        ok = speckle_filter(disp, ok, max_size=cfg.speckle_size,
+                            max_diff=max(cfg.speckle_range, 1.0),
+                            plain=plain)
     return MatchResult(disparity=disp, valid=ok)

@@ -91,6 +91,7 @@ from i3dr_stereo_tpu_torch.ops.speckle import speckle_filter
 from i3dr_stereo_tpu_torch.ops.subpix import halfpel_refine
 from i3dr_stereo_tpu_torch.ops.wls import wls_fill
 from i3dr_stereo_tpu_torch.ops.wta import wta_disparity
+from i3dr_stereo_tpu_torch.utils.metrics import _OFF
 from i3dr_stereo_tpu_torch.utils.metrics import GLOBAL_METRICS as METRICS
 
 
@@ -186,27 +187,38 @@ def graph_key(left: torch.Tensor, right: torch.Tensor, cfg: MatcherConfig,
 @dataclasses.dataclass(eq=False)
 class _Captured:
     """One captured match: the graph, the static images it reads, the
-    static result it writes and the kernel launches a replay makes."""
+    static result it writes, the kernel launches a replay makes and the
+    bytes of the graph's memory pool that no live tensor holds (where a
+    replay's intermediates live)."""
 
     graph: "torch.cuda.CUDAGraph"
     inputs: tuple
     result: MatchResult
     launches: dict
+    pool_free: int = 0
 
 
 def _capture(match, left: torch.Tensor, right: torch.Tensor) -> _Captured:
     """Capture ``match`` of copies of the two images into a graph with a
     memory pool of its own. The kernels launched meanwhile stay counted in
-    ``_build.LAUNCHES`` once, for the frame the capture serves."""
+    ``_build.LAUNCHES`` once, for the frame the capture serves. The pool's
+    free bytes are what the capture reserved less what its result holds
+    (the allocator's counts, on the host)."""
     inputs = (left.clone(), right.clone())
     before = dict(_build.LAUNCHES)
+    dev = left.device
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.device(left.device), \
+    with torch.cuda.device(dev), \
             torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        # counted inside: entering the capture empties the allocator's cache
+        reserved, allocated = (torch.cuda.memory_reserved(dev),
+                               torch.cuda.memory_allocated(dev))
         result = match(*inputs)
     launches = {k: n - before[k] for k, n in _build.LAUNCHES.items()
                 if n != before[k]}
-    return _Captured(graph, inputs, result, launches)
+    pool_free = ((torch.cuda.memory_reserved(dev) - reserved)
+                 - (torch.cuda.memory_allocated(dev) - allocated))
+    return _Captured(graph, inputs, result, launches, max(pool_free, 0))
 
 
 GRAPH_KEYS = 4   # the keys a PyramidGraphs holds, captured or not
@@ -225,9 +237,16 @@ class PyramidGraphs:
     outputs, so a result held across the next replay keeps its values,
     and adds the captured launches to ``_build.LAUNCHES``, so a replayed
     frame counts what an eager one does. A changed config is a new key:
-    one eager frame, one captured, then replays."""
+    one eager frame, one captured, then replays. A key whose eager call
+    raises is forgotten, so it is never captured.
 
-    def __init__(self):
+    Each call runs under the span ``span`` (``graph``: the stage). On a
+    CUDA device it counts ``held_bytes``: what the allocator holds for
+    tensors at its end, and from the capture on the free bytes of the
+    graph's pool too, which the graph keeps for its intermediates."""
+
+    def __init__(self, span: str = "pyramid.match"):
+        self.span = span
         self._held = collections.OrderedDict()  # key -> _Captured or None
         self._lock = threading.Lock()
 
@@ -257,22 +276,33 @@ class PyramidGraphs:
         replayed (class docstring)."""
         with self._lock:
             stage = self.stage(key)
-            with METRICS.span("pyramid.match", graph=stage):
+            with METRICS.span(self.span, graph=stage) as span:
+                pool_free = 0
                 if stage == "eager":
-                    return match(left, right)
-                if stage == "capture":
-                    cap = self._held[key] = _capture(match, left, right)
+                    try:
+                        res = match(left, right)
+                    except BaseException:
+                        del self._held[key]
+                        raise
                 else:
-                    cap = self._held[key]
-                    cap.inputs[0].copy_(left)
-                    cap.inputs[1].copy_(right)
-                    for k, n in cap.launches.items():
-                        _build.LAUNCHES[k] += n
-                cap.graph.replay()
-                valid = cap.result.valid
-                return MatchResult(
-                    disparity=cap.result.disparity.clone(),
-                    valid=None if valid is None else valid.clone())
+                    if stage == "capture":
+                        cap = self._held[key] = _capture(match, left, right)
+                    else:
+                        cap = self._held[key]
+                        cap.inputs[0].copy_(left)
+                        cap.inputs[1].copy_(right)
+                        for k, n in cap.launches.items():
+                            _build.LAUNCHES[k] += n
+                    cap.graph.replay()
+                    valid = cap.result.valid
+                    res = MatchResult(
+                        disparity=cap.result.disparity.clone(),
+                        valid=None if valid is None else valid.clone())
+                    pool_free = cap.pool_free
+                if span is not _OFF and left.device.type == "cuda":
+                    span.set(held_bytes=torch.cuda.memory_allocated(
+                        left.device) + pool_free)
+                return res
 
 
 GRAPHS = PyramidGraphs()

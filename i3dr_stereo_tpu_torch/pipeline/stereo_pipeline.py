@@ -6,8 +6,9 @@ once per rig (:meth:`StereoPipeline.set_rig` rebuilds them) on the
 pipeline's device, and every frame is one ``remap`` launch for both images.
 Every call runs the current config: its numeric fields (P1/P2,
 uniqueness, backmatch distance, speckle range) reach the kernels as
-scalars, and the depth bounds as runtime scalars. On the card the pyramid
-matcher replays a CUDA graph captured for the config
+scalars, and the depth bounds as runtime scalars, each made on the device
+once a value (:meth:`StereoPipeline._scalar`). On the card the pyramid
+matcher and CSBP replay a CUDA graph captured for the config
 (``matchers/pyramid.py:PyramidGraphs``), so a change through
 :meth:`StereoPipeline.update_config` costs one eager frame and one
 captured frame, then replays; ``update_cloud`` rebuilds nothing. The
@@ -95,6 +96,7 @@ class StereoPipeline:
             self._lmap = self._rmap = None
         self._Q = torch.as_tensor(self.rig.Q, dtype=torch.float32,
                                   device=self.device)
+        self._scalars = {}
 
     # -- live reconfigure ------------------------------------------------------
     def update_config(self, **kw) -> None:
@@ -110,7 +112,18 @@ class StereoPipeline:
 
     # -- the step --------------------------------------------------------------
     def _scalar(self, v) -> torch.Tensor:
-        return torch.tensor(v, dtype=torch.float32, device=self.device)
+        """``v`` as a float32 scalar on the pipeline's device, made once a
+        value and held (16 values at most): a tensor made from the host is
+        a copy that waits for the work queued on the device, so made each
+        frame after the match it kept the host from queueing the rest of
+        the frame while the match ran."""
+        t = self._scalars.get(v)
+        if t is None:
+            if len(self._scalars) >= 16:
+                self._scalars.clear()
+            t = self._scalars[v] = torch.tensor(v, dtype=torch.float32,
+                                                device=self.device)
+        return t
 
     def _remap_input(self, image) -> torch.Tensor:
         x = torch.as_tensor(image, device=self.device)

@@ -129,6 +129,20 @@ def test_live_reconfigure_uses_new_scalars(scene, port):
     assert res.valid.sum() > port.valid.sum()
 
 
+def test_depth_bounds_are_made_once_a_value():
+    """The clamp's scalars are made on the device once a value and held,
+    16 values at most; a new rig starts afresh."""
+    pipe = _port_pipeline()
+    a = pipe._scalar(9.0)
+    assert a.dtype == torch.float32 and float(a) == 9.0
+    assert pipe._scalar(9.0) is a and pipe._scalar(25.0) is not a
+    for v in range(40):
+        assert float(pipe._scalar(v + 0.5)) == v + 0.5
+        assert len(pipe._scalars) <= 16
+    pipe.set_rig(pipe.rig)
+    assert pipe._scalars == {}
+
+
 def test_batched_process_equals_frames(scene, port):
     pipe = _port_pipeline()
     l = np.stack([scene.left, scene.left])

@@ -1,9 +1,10 @@
 """The pyramid's CUDA graphs, on the CPU: what keys a capture, the cache's
 least-recently-used order, the route of CPU and ``plain`` calls (never a
 capture), the cache's eager / capture / replay sequence with a stand-in
-for the capture, and the backmatch thresholds compared in float32 without
-a copy to the device, mask for mask as the former
-``torch.as_tensor(max_diff, dtype=torch.float32)`` form gave them."""
+for the capture, a key whose eager call raises never captured, and the
+backmatch thresholds compared in float32 without a copy to the device,
+mask for mask as the former ``torch.as_tensor(max_diff,
+dtype=torch.float32)`` form gave them."""
 
 from types import SimpleNamespace
 
@@ -156,6 +157,35 @@ def test_a_result_without_valid_replays_none(monkeypatch):
     x = torch.rand(4, 4)
     assert [graphs.run("k", x, x, match).valid for _ in range(3)] \
         == [None] * 3
+
+
+def test_a_key_whose_eager_call_raises_is_never_captured(monkeypatch):
+    """An eager call that raises leaves no key behind: the next call of
+    the key runs eagerly again, under the cache's span name."""
+    def refuse(*a, **kw):
+        raise AssertionError("a failed key was captured")
+
+    monkeypatch.setattr(pyr, "_capture", refuse)
+    graphs = pyr.PyramidGraphs(span="csbp.match")
+    assert graphs.span == "csbp.match"
+    assert pyr.PyramidGraphs().span == "pyramid.match"
+
+    def fails(l, r):
+        raise ValueError("too small")
+
+    x = torch.rand(4, 4)
+    for _ in range(2):
+        with pytest.raises(ValueError):
+            graphs.run("k", x, x, fails)
+        assert graphs.keys() == []
+    GLOBAL_METRICS._on = True
+    try:
+        graphs.run("k", x, x, lambda l, r: MatchResult(l, None))
+        spans = [s for s in GLOBAL_METRICS.spans() if s.name == "csbp.match"]
+    finally:
+        GLOBAL_METRICS.clear()
+    assert graphs.keys() == ["k"]
+    assert [s.attrs for s in spans] == [{"graph": "eager"}]
 
 
 @pytest.fixture(scope="module")
